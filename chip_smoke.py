@@ -14,9 +14,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      mixed precision (the default there), with the kernel launch counts
      read around the solve; then the same instance in pure float64;
   4. the headline problem of bench.py (z=40, l=120, 8 SOC blocks, n=100);
-  5. a profile of 100 iterations of the large SOCP, mixed and pure
-     (launches, device busy share, the kernels that take the most device
-     time, the operators that take the most host time).
+  5. the headline batch of bench.py: B=1024 problems of that family
+     (seeds 1000-2023) through make_chunked_batch_solver, mixed (the
+     default there) with kernel K2's launch count read around the solve,
+     then the same batch in pure float64;
+  6. BatchWorkspace at B=256: a cold solve, b shifted by 1 %, a warm
+     solve;
+  7. a profile of 100 iterations of the large SOCP, mixed and pure, and
+     of 50 batched steps of the headline batch, mixed (launches, device
+     busy share, the kernels that take the most device time, the
+     operators that take the most host time).
+Phase 2 also holds K2 against its plain version at the batched shapes.
 The second-to-last line is a JSON object with one entry per kernel, the
 last line {"ok": true, "device": {...}}.
 """
@@ -35,6 +43,9 @@ from scs_tpu_torch import Settings, Workspace
 from scs_tpu_torch.demo_socp import make_spec
 from scs_tpu_torch.models import gen_planted
 from scs_tpu_torch.ops import _build, dsmatvec
+from scs_tpu_torch.parallel import (BatchWorkspace,
+                                    make_chunked_batch_solver,
+                                    make_solver_parts)
 from scs_tpu_torch.types import ConeSpec
 
 # H100 SXM, NVIDIA's data sheet: HBM3 bandwidth and float64 (non-tensor)
@@ -108,6 +119,128 @@ def ds_matvec_case(m: int, n: int, seed: int) -> dict:
         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                      >= flops / FP64_FLOPS else "operations"),
     }
+
+
+def ds_matvec_batched_case(B: int, m: int, n: int, seed: int,
+                           strided: bool = False) -> dict:
+    """K2 against its plain version at one (B, m, n), each lane held to
+    1e-12 max(|A[b]| |x[b]|); times of the kernel, the plain version and
+    torch.matmul on the float64 stack. strided: x is a column slice of a
+    wider (B, n + 13) tensor, as the solver passes u[:, :n]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.randn(B, m, n, generator=gen, dtype=torch.float64,
+                    device="cuda")
+    if strided:
+        x = torch.randn(B, n + 13, generator=gen, dtype=torch.float64,
+                        device="cuda")[:, 5:5 + n]
+    else:
+        x = torch.randn(B, n, generator=gen, dtype=torch.float64,
+                        device="cuda")
+    split = dsmatvec.split_operand(A)
+    A64 = split.hi.double() + split.lo.double()
+    y = dsmatvec.ds_matvec_batched(split, x)
+    torch.cuda.synchronize()
+    ref = dsmatvec.ds_matvec_batched_plain(split, x)
+    err_lane = (y - ref).abs().amax(dim=1)
+    tol_lane = 1e-12 * torch.matmul(A64.abs(), x.abs().unsqueeze(-1)
+                                    ).squeeze(-1).amax(dim=1)
+    err = float(err_lane.max())
+    check(bool(torch.isfinite(err_lane).all())
+          and bool((err_lane <= tol_lane).all()),
+          f"ds_matvec_batched {B}x{m}x{n}: max|kernel - plain| = {err:.3e}"
+          f" above 1e-12 max(|A||x|) in some lane")
+    nbytes = 8 * B * m * n + 8 * B * n + 8 * B * m
+    flops = 3 * B * m * n
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS) * 1e3
+    xc = x.unsqueeze(-1)
+    return {
+        "shape": [B, m, n], "strided_x": strided, "max_abs_err": err,
+        "tol": float(tol_lane.min()),
+        "ms": median_ms(lambda: dsmatvec.ds_matvec_batched(split, x)),
+        "plain_ms": median_ms(
+            lambda: dsmatvec.ds_matvec_batched_plain(split, x)),
+        "library_ms": median_ms(lambda: torch.matmul(A64, xc)),
+        "bound_ms": bound,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= flops / FP64_FLOPS else "operations"),
+    }
+
+
+def headline_batch(spec, B: int, seed0: int):
+    """B planted problems of the headline family, stacked on the card."""
+    probs = [gen_planted(spec, n=100, seed=seed0 + i, density=0.1)
+             for i in range(B)]
+    A, b, c = (torch.stack([getattr(p.problem, k) for p in probs]).cuda()
+               for k in ("A", "b", "c"))
+    return A, b, c, np.asarray([p.opt for p in probs])
+
+
+def solve_batch(spec, batch, stg, label):
+    """The batch through make_chunked_batch_solver on the card, with the
+    K2 launch count read around the solve. Returns the numbers."""
+    A, b, c, opts = batch
+    B = A.shape[0]
+    bnd = torch.zeros(B, 0, dtype=torch.float64, device="cuda")
+    solver = make_chunked_batch_solver(spec, stg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dsmatvec.launches = 0
+    dsmatvec.batched_launches = 0
+    t0 = time.perf_counter()
+    res = solver(A, b, c, bnd, bnd)
+    status = res.status.cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches = dsmatvec.batched_launches
+    check(dsmatvec.launches == 0, f"{label}: the batch launched K1")
+    iters = res.iters.cpu().numpy()
+    pobj = res.pobj.cpu().numpy()
+    steps = sum(lv[3] for lv in solver.levels)
+    err = np.abs(pobj - opts) / (1 + np.abs(opts))
+    levels = [(ph, bk, al, n, round(sec, 3))
+              for ph, bk, al, n, sec in solver.levels]
+    print(f"{label}: B={B}, wall {wall:.3f} s, {int(iters.sum())} "
+          f"lane-iterations ({iters.min()}-{iters.max()} per lane, median "
+          f"{int(np.median(iters))}), {iters.sum() / wall:.0f} "
+          f"lane-iterations/s, {steps} lockstep steps, "
+          f"{wall / max(steps, 1) * 1e3:.3f} ms/step, levels (phase, "
+          f"bucket, alive at end, steps, s) {levels}, "
+          f"{solver.machinery.polished} lanes polished, K2 launches "
+          f"{launches}, max pobj rel err {err.max():.2e}, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(bool(np.all(status == 1)),
+          f"{label}: statuses {np.unique(status, return_counts=True)}")
+    check(bool(np.all(err <= 1e-3)), f"{label}: objective error "
+          f"{err.max():.2e}")
+    check(bool(torch.isfinite(res.x).all()), f"{label}: x not finite")
+    return {"status": status, "pobj": pobj, "iters": iters, "wall": wall,
+            "steps": steps, "launches": launches}
+
+
+def warm_batch(spec, batch):
+    """BatchWorkspace on the card: cold solve, b shifted by 1 %, warm
+    solve (the examples/mpc_warm_batch.py pattern)."""
+    A, b, c, _ = batch
+    ws = BatchWorkspace(spec, Settings(linsys="direct", chunk_iters=250),
+                        A, None, b, c)
+    t0 = time.perf_counter()
+    cold = ws.solve()
+    cold_it = cold.iters.cpu().numpy()
+    t1 = time.perf_counter()
+    ws.update(b=b * 1.01)
+    warm = ws.solve(warm_start=True)
+    warm_it = warm.iters.cpu().numpy()
+    t2 = time.perf_counter()
+    print(f"BatchWorkspace B={A.shape[0]}: cold {int(cold_it.sum())} "
+          f"lane-iterations (max {cold_it.max()}) in {t1 - t0:.3f} s, "
+          f"warm after b *= 1.01 {int(warm_it.sum())} lane-iterations "
+          f"(max {warm_it.max()}) in {t2 - t1:.3f} s, warm levels "
+          f"{[(ph, bk, al, n, round(sec, 3)) for ph, bk, al, n, sec in ws.levels]}")
+    for label, r in (("cold", cold), ("warm", warm)):
+        check(bool((r.status == 1).all()),
+              f"BatchWorkspace {label}: not every lane solved")
+    check(warm_it.sum() < cold_it.sum(),
+          f"BatchWorkspace: warm {warm_it.sum()} lane-iterations not below "
+          f"cold {cold_it.sum()}")
 
 
 def solve_planted(p, spec, label):
@@ -206,6 +339,52 @@ def profile_iterations(p, spec, mixed: bool, iters: int, label: str) -> None:
               f"{k.count / it:6.1f} calls/iteration  {k.key[:80]}")
 
 
+def profile_batched(spec, batch, steps: int) -> None:
+    """`profile_iterations` for `steps` lockstep steps of the batched
+    solver, mixed (its default on the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    A, b, c, _ = batch
+    init_fn, chunk_fn, _ = make_solver_parts(spec, Settings(linsys="direct"))
+    data, st0 = init_fn(A, None, b, c)
+    chunk_fn(data, st0, steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = chunk_fn(data, st0, steps)
+        st.u.sum().item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, launches, by_name = 0.0, 0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy_us += us
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += 1
+    ran = int(st.iter.max())
+    label = f"batch B={A.shape[0]} mixed profile"
+    print(f"{label}, {ran} steps from a cold start: wall "
+          f"{wall_ms / ran:.3f} ms/step under the profiler, "
+          f"{launches / ran:.1f} CUDA launches/step")
+    if not by_name:
+        print(f"{label}: device time not measured (the profiler saw no "
+              f"device events)")
+        return
+    print(f"{label}: device busy {busy_us / 1e3 / ran:.3f} ms/step, "
+          f"{100 * busy_us / 1e3 / wall_ms:.1f}% of wall")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {us / 1e3 / ran:8.4f} ms/step  {name[:100]}")
+    print(f"{label}: host time by operator (self)")
+    ops = sorted(prof.key_averages(), key=lambda k: -k.self_cpu_time_total)
+    for k in ops[:10]:
+        print(f"    {k.self_cpu_time_total / 1e3 / ran:8.4f} ms/step "
+              f"{k.count / ran:6.1f} calls/step  {k.key[:80]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -238,6 +417,20 @@ def main() -> int:
               f"{c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
               f"({c['bound_by']}), plain {c['plain_ms']:.4f} ms, torch.mv "
               f"{c['library_ms']:.4f} ms")
+
+    # 2b. K2 against its plain version at the batched headline's shapes
+    bshapes = [(1024, 400, 100, False), (1024, 100, 400, False),   # A, A'
+               (1024, 100, 100, False), (3, 37, 101, False),       # K, ragged
+               (1024, 400, 100, True)]                             # x slice
+    bcases = [ds_matvec_batched_case(B, m, n, seed=20 + i, strided=st)
+              for i, (B, m, n, st) in enumerate(bshapes)]
+    for c in bcases:
+        print(f"ds_matvec_batched {'x'.join(map(str, c['shape']))}"
+              f"{' (x strided)' if c['strided_x'] else ''}: max_abs_err "
+              f"{c['max_abs_err']:.3e} (tol >= {c['tol']:.3e} per lane), "
+              f"kernel {c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}), plain {c['plain_ms']:.4f} ms, "
+              f"torch.matmul {c['library_ms']:.4f} ms")
 
     # host cost of one call: the wrapper's checks and the ctypes launch,
     # against torch.mv's dispatch, at a size where the device is idle
@@ -275,7 +468,32 @@ def main() -> int:
     solve_planted(gen_planted(head, n=100, seed=1000, density=0.1), head,
                   "headline")
 
-    # 5. where the time of an iteration goes, mixed and pure, on the large
+    # 5. the headline batch, mixed (K2 counts set to 0 just before), then
+    # in pure float64
+    batch = headline_batch(head, 1024, 1000)
+    mixed_b = solve_batch(head, batch,
+                          Settings(linsys="direct", chunk_iters=250),
+                          "headline batch mixed")
+    check(mixed_b["launches"] >= 4 * mixed_b["steps"],
+          f"headline batch: {mixed_b['launches']} K2 launches < 4 x "
+          f"{mixed_b['steps']} steps")
+    pure_b = solve_batch(head, batch,
+                         Settings(linsys="direct", chunk_iters=250,
+                                  mixed_precision=False),
+                         "headline batch pure f64")
+    check(bool(np.array_equal(pure_b["status"], mixed_b["status"])),
+          "headline batch: pure and mixed statuses differ")
+    agree = np.abs(mixed_b["pobj"] - pure_b["pobj"]) / (
+        1 + np.abs(pure_b["pobj"]))
+    check(bool(np.all(agree <= 1e-3)),
+          f"headline batch: mixed vs pure pobj differ by {agree.max():.2e}")
+    print(f"{card}, peak device memory of the last batch "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # 6. warm re-solves of a batch
+    warm_batch(head, tuple(t[:256] for t in batch))
+
+    # 7. where the time of an iteration goes, mixed and pure, on the large
     # SOCP (100 iterations each): first unprofiled, in turns, then under
     # the profiler. Last: the profiler's tracing may slow launches after
     # it stops, so nothing timed above runs after it.
@@ -288,6 +506,7 @@ def main() -> int:
           f"{turns[False][1]:.3f} ms/iteration")
     profile_iterations(big_p, spec, True, 100, "large SOCP mixed")
     profile_iterations(big_p, spec, False, 100, "large SOCP pure f64")
+    profile_batched(head, batch, 50)
 
     main_case = cases[0]
     kernels = [{
@@ -300,6 +519,16 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+    }, {
+        "name": "ds_matvec_batched", "route": "cuda",
+        "source": "scs_tpu_torch/csrc/dsmatvec.cu",
+        "replaces": "scs_tpu/ops/dsmatvec.py:226",
+        "launches": mixed_b["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in bcases),
+        "ms": bcases[0]["ms"], "plain_ms": bcases[0]["plain_ms"],
+        "bound_ms": bcases[0]["bound_ms"],
+        "bound_by": bcases[0]["bound_by"],
+        "library_ms": bcases[0]["library_ms"],
     }]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -112,3 +112,40 @@ def proj_dual_cone(x: torch.Tensor, spec: ConeSpec,
     if r_y is None:
         return proj_cone(-x, spec, cone_data) + x
     return proj_cone(-x * r_y, spec, cone_data) / r_y + x
+
+
+def proj_cone_batched(x: torch.Tensor, spec: ConeSpec) -> torch.Tensor:
+    """`proj_cone` for a batch: project each row of x (B, m) onto K."""
+    lay = ConeLayout.make(spec)
+    if x.shape[1] != lay.total:
+        raise ValueError(f"x has {x.shape[1]} columns, the cones "
+                         f"{lay.total}")
+    B = x.shape[0]
+    parts = []
+    if spec.z:
+        parts.append(torch.zeros((B, spec.z), dtype=x.dtype,
+                                 device=x.device))
+    if spec.l:
+        parts.append(torch.clamp_min(x[:, lay.l_off:lay.l_off + spec.l],
+                                     0.0))
+    q_sizes = tuple(sz for sz in spec.q if sz > 0)
+    if q_sizes:
+        runs = _contiguous_runs(q_sizes)
+        seg = x[:, lay.q_off:lay.q_off + sum(q_sizes)]
+        if len(runs) == 1:
+            sz, ct = runs[0]
+            if sz == 1:
+                parts.append(torch.clamp_min(seg, 0.0))
+            else:
+                parts.append(soc.proj_soc_batch(seg.reshape(B * ct, sz))
+                             .reshape(B, ct * sz))
+        else:
+            parts.append(soc.proj_soc_hetero_batched(seg, q_sizes))
+    return torch.cat(parts, dim=1) if parts else x
+
+
+def proj_dual_cone_batched(x: torch.Tensor, spec: ConeSpec,
+                           r_y: torch.Tensor) -> torch.Tensor:
+    """`proj_dual_cone` for a batch, with each problem's own diagonal
+    metric r_y (B, m)."""
+    return proj_cone_batched(-x * r_y, spec) / r_y + x

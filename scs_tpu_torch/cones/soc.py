@@ -62,3 +62,23 @@ def proj_soc_hetero(x: torch.Tensor, sizes: tuple[int, ...]) -> torch.Tensor:
     scale = alpha / torch.where(s > 0, s, torch.ones_like(s))
     proj = torch.where(is_head, alpha[seg], scale[seg] * x)
     return torch.where(inside[seg], x, torch.where(below[seg], zero, proj))
+
+
+def proj_soc_hetero_batched(x: torch.Tensor,
+                            sizes: tuple[int, ...]) -> torch.Tensor:
+    """`proj_soc_hetero` for a batch: each row of x (B, sum(sizes)) holds
+    one problem's stack of cones; the tail norms are one segment sum
+    along dim 1."""
+    seg, is_head, heads = _soc_layout(sizes, x.device)
+    zero = torch.zeros_like(x)
+    z = torch.where(is_head, zero, x)
+    s = torch.sqrt(torch.zeros(x.shape[0], len(sizes), dtype=x.dtype,
+                               device=x.device).index_add_(1, seg, z * z))
+    t = x[:, heads]
+    inside = s <= t
+    below = s <= -t
+    alpha = 0.5 * (s + t)
+    scale = alpha / torch.where(s > 0, s, torch.ones_like(s))
+    proj = torch.where(is_head, alpha[:, seg], scale[:, seg] * x)
+    return torch.where(inside[:, seg], x,
+                       torch.where(below[:, seg], zero, proj))

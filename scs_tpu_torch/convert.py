@@ -51,3 +51,22 @@ def settings_from_dict(d: dict) -> Settings:
 def solution_from_numpy(x, y, s) -> Solution:
     """A warm start from the JAX package's solution vectors."""
     return Solution(x=_tensor(x), y=_tensor(y), s=_tensor(s))
+
+
+def batch_from_numpy(A, b, c, P=None, bu=None, bl=None,
+                     dtype=torch.float64):
+    """The JAX package's stacked batch arrays (A (B, m, n), b (B, m),
+    c (B, n), P (B, n, n) or None, bu/bl (B, k) or None) as this
+    package's tensors, in the order of a batched solve's arguments:
+    (A, P, b, c, bu, bl); absent bounds become (B, 0)."""
+    A, b, c, P = (_tensor(a, dtype) for a in (A, b, c, P))
+    B = A.shape[0]
+    bu = torch.zeros(B, 0, dtype=dtype) if bu is None else _tensor(bu, dtype)
+    bl = torch.zeros(B, 0, dtype=dtype) if bl is None else _tensor(bl, dtype)
+    return A, P, b, c, bu, bl
+
+
+def solve_result_to_numpy(res) -> dict:
+    """A batched SolveResult as a dict of numpy arrays, field by field."""
+    return {f.name: getattr(res, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(res)}

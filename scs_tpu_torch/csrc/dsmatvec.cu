@@ -1,8 +1,10 @@
 // y = A x for A held as an (hi, lo) float32 pair, x and y float64.
 //
-// Replaces the TPU kernel scs_tpu/ops/dsmatvec.py::_kernel (launched by
-// _ds_matvec_padded through pl.pallas_call), the double-single matvec that
-// the mixed direct solve and the residual checks run (K1).
+// Replaces two TPU kernels of scs_tpu/ops/dsmatvec.py, the double-single
+// matvec that the mixed direct solve and the residual checks run:
+//   K1  _kernel, launched by _ds_matvec_padded, one problem (batch = 1);
+//   K2  _batched_kernel, launched by _ds_matvec_batched, B problems in
+//       shared grid steps (batch = B, one blockIdx.z per problem).
 //
 // Why the arithmetic differs from the TPU kernel: the TPU has no float64
 // hardware, so that kernel forms ~2^-48-accurate products and sums from
@@ -27,8 +29,16 @@
 // resident output block has no counterpart here). Rows past m and columns
 // past n are masked, so the (hi, lo) pair needs no padding.
 //
-// blockIdx.z indexes a batch of independent problems with their own
-// strides, so the batched solver can launch the same kernel.
+// K2: blockIdx.z indexes a batch of independent problems, each at its own
+// offset (a_bstride for hi/lo, x_bstride for x, y_bstride for y), so the
+// batched solver launches this same kernel for B problems at once and x
+// may be a column slice of the (B, l) iterate. The TPU kernel groups
+// several problems into one grid step to save per-step overhead; here the
+// grid is (ceil(m / 8), 1, B) blocks and the hardware schedules them, so
+// nothing is grouped. gridDim.z is at most 65535, which the wrapper checks.
+// The 16-byte path needs every problem's rows and x aligned, which the
+// wrapper checks over the strides; otherwise all problems take the scalar
+// loads.
 
 #include <cuda_runtime.h>
 

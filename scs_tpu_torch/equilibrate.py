@@ -5,6 +5,11 @@ Counterpart of `scs_tpu/equilibrate.py` (SCS: linsys/scs_matrix.c:226-496,
 src/normalize.c:33-90). Row and column norms are reductions over the
 dense A and P; the per-cone aggregation is a scatter-reduce over a
 segment-id map derived from the cone layout.
+
+The `*_batched` functions equilibrate and normalize a stack of B problems
+of one shape (leading batch axis); each problem's D and E are those of
+`equilibrate` applied to it alone. The Scaling of a batch holds D (B, m),
+E (B, n) and sigmas of shape (B,).
 """
 
 from __future__ import annotations
@@ -134,4 +139,94 @@ def identity_scaling(m: int, n: int, dtype, device) -> Scaling:
     one = torch.ones((), dtype=dtype, device=device)
     return Scaling(D=torch.ones(m, dtype=dtype, device=device),
                    E=torch.ones(n, dtype=dtype, device=device),
+                   primal_scale=one, dual_scale=one)
+
+
+# ---- a batch of problems (leading batch axis) ----
+
+
+def _segment_reduce_batched(vals, ids, nseg, reduce: str):
+    out = torch.zeros(vals.shape[0], nseg, dtype=vals.dtype,
+                      device=vals.device)
+    return out.scatter_reduce(1, ids.expand_as(vals), vals, reduce,
+                              include_self=False)
+
+
+def equilibrate_batched(A: torch.Tensor, P, spec: ConeSpec):
+    """`equilibrate` for a (B, m, n) stack (and P (B, n, n) or None):
+    the same passes, each problem scaled by its own row and column norms.
+    Returns (A, P, Scaling)."""
+    ids_np, nseg = _segment_ids(spec)
+    ids = torch.as_tensor(ids_np, device=A.device)
+    B, m, n = A.shape
+    D = torch.ones(B, m, dtype=A.dtype, device=A.device)
+    E = torch.ones(B, n, dtype=A.dtype, device=A.device)
+
+    for _ in range(config.NUM_RUIZ_PASSES):
+        Dt = torch.amax(torch.abs(A), dim=2)
+        Dt = _segment_reduce_batched(Dt, ids, nseg, "amax")[:, ids]
+        Dt = 1.0 / torch.sqrt(_apply_limit(Dt))
+        Et = torch.amax(torch.abs(A), dim=1)
+        if P is not None:
+            Et = torch.maximum(Et, torch.amax(torch.abs(P), dim=1))
+        Et = 1.0 / torch.sqrt(_apply_limit(Et))
+        A = Dt[:, :, None] * A * Et[:, None, :]
+        if P is not None:
+            P = Et[:, :, None] * P * Et[:, None, :]
+        D = D * Dt
+        E = E * Et
+
+    for _ in range(config.NUM_L2_PASSES):
+        Dt = torch.sqrt(torch.sum(A * A, dim=2))
+        seg_sum = _segment_reduce_batched(Dt, ids, nseg, "sum")
+        seg_cnt = _segment_reduce_batched(torch.ones_like(Dt), ids, nseg,
+                                          "sum")
+        Dt = (seg_sum / torch.clamp_min(seg_cnt, 1.0))[:, ids]
+        Dt = 1.0 / torch.sqrt(_apply_limit(Dt))
+        Et = torch.sum(A * A, dim=1)
+        if P is not None:
+            Et = Et + torch.sum(P * P, dim=1)
+        Et = 1.0 / torch.sqrt(_apply_limit(torch.sqrt(Et)))
+        A = Dt[:, :, None] * A * Et[:, None, :]
+        if P is not None:
+            P = Et[:, :, None] * P * Et[:, None, :]
+        D = D * Dt
+        E = E * Et
+
+    one = torch.ones(B, dtype=A.dtype, device=A.device)
+    return A, P, Scaling(D=D, E=E, primal_scale=one, dual_scale=one)
+
+
+def normalize_b_c_batched(scal: Scaling, b: torch.Tensor, c: torch.Tensor):
+    """`normalize_b_c` for b (B, m), c (B, n): one sigma per problem."""
+    c = c * scal.E
+    b = b * scal.D
+    sigma = torch.maximum(torch.amax(torch.abs(c), dim=1),
+                          torch.amax(torch.abs(b), dim=1))
+    one = torch.ones_like(sigma)
+    sigma = torch.where(sigma < config.MIN_NORMALIZATION_FACTOR, one, sigma)
+    sigma = torch.clamp_max(sigma, config.MAX_NORMALIZATION_FACTOR)
+    sigma = torch.where(sigma < config.DIV_EPS_TOL,
+                        one / config.DIV_EPS_TOL, 1.0 / sigma)
+    return b * sigma[:, None], c * sigma[:, None], Scaling(
+        D=scal.D, E=scal.E, primal_scale=sigma, dual_scale=sigma)
+
+
+def normalize_xys_batched(scal: Scaling, x, y, s):
+    """`normalize_xys` for rows of x (B, n), y and s (B, m)."""
+    ps, ds = scal.primal_scale[:, None], scal.dual_scale[:, None]
+    return x / (scal.E / ds), y / (scal.D / ps), s * (scal.D * ds)
+
+
+def unnormalize_xys_batched(scal: Scaling, x, y, s):
+    """`unnormalize_xys` for rows of x (B, n), y and s (B, m)."""
+    ps, ds = scal.primal_scale[:, None], scal.dual_scale[:, None]
+    return x * (scal.E / ds), y * (scal.D / ps), s / (scal.D * ds)
+
+
+def identity_scaling_batched(B: int, m: int, n: int, dtype,
+                             device) -> Scaling:
+    one = torch.ones(B, dtype=dtype, device=device)
+    return Scaling(D=torch.ones(B, m, dtype=dtype, device=device),
+                   E=torch.ones(B, n, dtype=dtype, device=device),
                    primal_scale=one, dual_scale=one)

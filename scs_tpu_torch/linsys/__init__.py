@@ -54,6 +54,20 @@ def resolve_mixed(stg, device: torch.device) -> bool:
     return stg.dtype == torch.float64 and torch.device(device).type != "cpu"
 
 
+def resolve_fast_f32(stg) -> bool:
+    """Resolve Settings.fast_f32, the float32-state fast phase of the
+    batched solvers. It needs kernel K3 (the double-single pair matvec)
+    and the compensated reductions, which are not ported: auto (None)
+    resolves to off, and asking for it raises (ROADMAP queue 1, item 9b).
+    The JAX package turns it on wherever mixed is on, even where its
+    kernels are missing (ROADMAP queue 3, R2); here it waits for them."""
+    if stg.fast_f32:
+        raise NotImplementedError(
+            "Settings.fast_f32 (the float32-state fast phase) is not ported "
+            "yet (ROADMAP queue 1, item 9b)")
+    return False
+
+
 def prepare_operands(backend, A, P, n_zero: int, mixed: bool,
                      ds_split: Optional[bool] = None):
     """The backend's loop-invariant operand cache (ProblemData.lin_cache).
@@ -65,3 +79,11 @@ def prepare_operands(backend, A, P, n_zero: int, mixed: bool,
     if ds_split is None:
         ds_split = A.device.type == "cuda"
     return backend.precompute(A, P, n_zero, ds=mixed and ds_split)
+
+
+def prepare_operands_batched(backend, A, P, n_zero: int, mixed: bool,
+                             ds_split: Optional[bool] = None):
+    """`prepare_operands` for a (B, m, n) stack (the batched solvers)."""
+    if ds_split is None:
+        ds_split = A.device.type == "cuda"
+    return backend.precompute_batched(A, P, n_zero, ds=mixed and ds_split)

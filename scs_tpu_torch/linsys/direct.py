@@ -13,6 +13,13 @@ of G (from the float32 Cholesky factor), so a solve is one float32
 matrix-vector product plus REFINE_PASSES float64 refinement passes. The
 refinement's K x and the surrounding A' z and A x run on the double-single
 kernel (`ops.dsmatvec`, K1) when the cache holds the operand splits.
+
+The `*_batched` functions do the same for a stack of B problems of one
+shape, with a leading batch axis on every operand (the JAX package's
+vmapped precompute/derive/solve): batched products, batched Cholesky
+factors, and the batched double-single kernel (K2). They are separate from
+the one-problem functions so that the one-problem path keeps its own
+rounding.
 """
 
 from __future__ import annotations
@@ -133,3 +140,96 @@ def solve(mats, diag_r, derived, rhs, warm_start=None, tol=None):
         its = REFINE_PASSES
         y = (_A_matvec(mats, x) - ry) / r_y
     return torch.cat([x, y]), its
+
+
+# ---- a batch of problems: every operand has a leading batch axis ----
+
+
+def bmv(M, x):
+    """Batched matrix-vector product: (B, p, q) @ (B, q) -> (B, p)."""
+    return torch.matmul(M, x.unsqueeze(-1)).squeeze(-1)
+
+
+def precompute_batched(A, P, n_zero: int, ds: bool = False) -> DirectCache:
+    """`precompute` for a (B, m, n) stack: K[b] = A[b]'A[b] + 999
+    A_z[b]'A_z[b] by batched products, and the splits of A, A' and K as
+    (B, ., .) stacks when `ds` is set."""
+    del P
+    At = A.transpose(1, 2)
+    K = torch.matmul(At, A)
+    if n_zero:
+        Az = A[:, :n_zero]
+        K = K + 999.0 * torch.matmul(Az.transpose(1, 2), Az)
+    if not ds:
+        return DirectCache(K, None, None, None)
+    return DirectCache(K, dsmatvec.split_operand(A),
+                       dsmatvec.split_operand(At),
+                       dsmatvec.split_operand(K))
+
+
+def _cholesky_batched(G):
+    """Lower Cholesky factors of a (B, n, n) stack; NaN in the lanes whose
+    G is not positive definite, so one failed lane leaves the others as
+    they are."""
+    L, info = torch.linalg.cholesky_ex(G)
+    ok = (info == 0).view(-1, 1, 1)
+    return torch.where(ok, L, torch.full_like(L, float("nan")))
+
+
+def derive_batched(mats, diag_r, scale, mixed: bool = False):
+    """`derive` for a batch: diag_r (B, l), scale (B,). Returns the float64
+    factors (B, n, n) (pure) or (float32 inverses (B, n, n), scale)
+    (mixed)."""
+    n = mats.A.shape[2]
+    G = scale[:, None, None] * mats.cache.K + torch.diag_embed(diag_r[:, :n])
+    if mats.P is not None:
+        G = G + mats.P
+    if not mixed:
+        return _cholesky_batched(G)
+    L32 = _cholesky_batched(G.to(torch.float32))
+    eye = torch.eye(n, dtype=torch.float32, device=G.device)
+    return (torch.cholesky_solve(eye.expand_as(L32), L32), scale)
+
+
+def _gram_matvec_batched(mats, diag_r, scale, x):
+    n = mats.A.shape[2]
+    cache = mats.cache
+    Kx = (dsmatvec.ds_matvec_batched(cache.ds_K, x)
+          if cache.ds_K is not None else bmv(cache.K, x))
+    y = scale[:, None] * Kx + diag_r[:, :n] * x
+    if mats.P is not None:
+        y = y + bmv(mats.P, x)
+    return y
+
+
+def solve_batched(mats, diag_r, derived, rhs):
+    """`solve` for a batch: rhs (B, n + m) -> (sol (B, n + m),
+    refine_passes). On the mixed path the float32 inverse-apply is one
+    batched float32 product and the refinement's K x, A' z and A x run on
+    the batched double-single kernel where the cache holds the splits."""
+    m, n = mats.A.shape[1:]
+    r_y = diag_r[:, n:n + m]
+    rx = rhs[:, :n]
+    ry = rhs[:, n:]
+    cache = mats.cache
+    if not isinstance(derived, tuple):  # pure path: float64 Cholesky
+        b = rx + bmv(mats.A.transpose(1, 2), ry / r_y)
+        x = torch.cholesky_solve(b.unsqueeze(-1), derived).squeeze(-1)
+        its = 0
+        y = (bmv(mats.A, x) - ry) / r_y
+    else:  # mixed: float32 inverse-apply + float64 refinement over K
+        Ginv32, scale = derived
+        f32, dtype = torch.float32, rhs.dtype
+        z = ry / r_y
+        b = rx + (dsmatvec.ds_matvec_batched(cache.ds_bwd, z)
+                  if cache.ds_bwd is not None
+                  else bmv(mats.A.transpose(1, 2), z))
+        x = bmv(Ginv32, b.to(f32)).to(dtype)
+        for _ in range(REFINE_PASSES):
+            r = b - _gram_matvec_batched(mats, diag_r, scale, x)
+            x = x + bmv(Ginv32, r.to(f32)).to(dtype)
+        its = REFINE_PASSES
+        ax = (dsmatvec.ds_matvec_batched(cache.ds_fwd, x)
+              if cache.ds_fwd is not None else bmv(mats.A, x))
+        y = (ax - ry) / r_y
+    return torch.cat([x, y], dim=1), its

@@ -1,17 +1,19 @@
-"""y = A x with A held as a double-single (hi, lo) float32 pair (kernel K1).
+"""y = A x with A held as a double-single (hi, lo) float32 pair: one
+problem (kernel K1) or a batch of problems (kernel K2).
 
 Counterpart of `scs_tpu/ops/dsmatvec.py` (`split_operand`, `ds_matvec`,
-`DsOperator`). The mixed-precision direct solve and its residual checks
+its batched rule `_ds_matvec_batched`, `DsOperator`). The mixed-precision direct solve and its residual checks
 need A x, A' z and K x accurate to far below the solver's ~1e-6 noise
 line, while the operator is stored as two float32 words per element
 (hi + lo carries ~48 bits of the float64 value).
 
-On a CUDA tensor `ds_matvec` launches the hand-written kernel in
-`csrc/dsmatvec.cu` (built with nvcc for sm_90a at first use, see
-`_build.py`); on a CPU tensor it runs the plain version
-`ds_matvec_plain`, which the tests compare against the JAX kernel and
-which the chip smoke test compares against the CUDA kernel. Any other
-device raises.
+On a CUDA tensor `ds_matvec` and `ds_matvec_batched` launch the
+hand-written kernel in `csrc/dsmatvec.cu` (built with nvcc for sm_90a at
+first use, see `_build.py`); the batched wrapper launches it with one
+`blockIdx.z` per problem. On a CPU tensor they run the plain versions
+`ds_matvec_plain` / `ds_matvec_batched_plain`, which the tests compare
+against the JAX kernels and which the chip smoke test compares against
+the CUDA kernel. Any other device raises.
 
 Unlike the TPU split, the pair is not padded: the kernel masks its own
 ragged edges.
@@ -26,23 +28,29 @@ import torch
 
 from . import _build
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA kernel since the counts were last set to 0: one
+# problem (K1) and batched (K2)
 launches = 0
+batched_launches = 0
+
+# gridDim.z, the batch index of a launch, is at most 65535
+MAX_BATCH = 65535
 
 
 class DsSplit(NamedTuple):
-    """(hi, lo) float32 pair of an (m, n) float64 matrix, hi + lo ~= A."""
+    """(hi, lo) float32 pair of an (m, n) float64 matrix, or of a (B, m, n)
+    stack of them, hi + lo ~= A."""
 
     hi: torch.Tensor
     lo: torch.Tensor
 
 
 def split_operand(A: torch.Tensor) -> DsSplit:
-    """Split a float64 matrix into its contiguous (hi, lo) float32 pair:
-    hi = f32(A), lo = f32(A - hi)."""
-    if A.dtype != torch.float64 or A.dim() != 2:
-        raise ValueError(f"split_operand takes a float64 matrix, got "
-                         f"{A.dtype} of shape {tuple(A.shape)}")
+    """Split a float64 matrix (m, n), or a stack of them (B, m, n), into
+    its contiguous (hi, lo) float32 pair: hi = f32(A), lo = f32(A - hi)."""
+    if A.dtype != torch.float64 or A.dim() not in (2, 3):
+        raise ValueError(f"split_operand takes a float64 matrix or a stack "
+                         f"of them, got {A.dtype} of shape {tuple(A.shape)}")
     hi = A.to(torch.float32).contiguous()
     lo = (A - hi.to(torch.float64)).to(torch.float32).contiguous()
     return DsSplit(hi, lo)
@@ -128,16 +136,104 @@ def _launch(split: DsSplit, x: torch.Tensor, m: int, n: int) -> torch.Tensor:
     return y
 
 
+def ds_matvec_batched_plain(split: DsSplit, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the batched kernel: y[b] = (hi[b] + lo[b])
+    @ x[b], each element formed exactly in float64."""
+    A = split.hi.to(torch.float64) + split.lo.to(torch.float64)
+    return torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
+
+
+def _check_batched(split: DsSplit, x: torch.Tensor) -> tuple[int, int, int]:
+    hi, lo = split
+    if hi.dim() != 3 or hi.shape != lo.shape:
+        raise ValueError(f"hi and lo must be (B, m, n) stacks of one shape, "
+                         f"got {tuple(hi.shape)} and {tuple(lo.shape)}")
+    if hi.dtype != torch.float32 or lo.dtype != torch.float32:
+        raise TypeError(f"hi and lo must be float32, got {hi.dtype}, "
+                        f"{lo.dtype}")
+    if x.dtype != torch.float64:
+        raise TypeError(f"x must be float64, got {x.dtype}")
+    B, m, n = hi.shape
+    if x.shape != (B, n):
+        raise ValueError(f"x must have shape ({B}, {n}), got "
+                         f"{tuple(x.shape)}")
+    if not (hi.device == lo.device == x.device):
+        raise ValueError(f"operands on different devices: {hi.device}, "
+                         f"{lo.device}, {x.device}")
+    return B, m, n
+
+
+def ds_matvec_batched(split: DsSplit, x: torch.Tensor) -> torch.Tensor:
+    """y (B, m) float64 with y[b] = (hi[b] + lo[b]) @ x[b] (kernel K2).
+
+    CUDA tensors go to the CUDA kernel, CPU tensors to the plain version.
+    The kernel reads the operands where they lie: hi and lo need unit
+    column stride and equal strides, x unit stride along n; the batch and
+    row strides are passed to the kernel (x is often a column slice of
+    the (B, l) iterate, whose batch stride is l)."""
+    B, m, n = _check_batched(split, x)
+    dev = x.device
+    if dev.type == "cpu":
+        return ds_matvec_batched_plain(split, x)
+    if dev.type != "cuda":
+        raise ValueError(f"ds_matvec_batched runs on CUDA or CPU tensors, "
+                         f"not {dev}")
+    return _launch_batched(split, x, B, m, n)
+
+
+def _launch_batched(split: DsSplit, x: torch.Tensor, B: int, m: int,
+                    n: int) -> torch.Tensor:
+    global batched_launches
+    hi, lo = split
+    if hi.stride() != lo.stride() or hi.stride(2) != 1 or x.stride(1) != 1:
+        raise ValueError("ds_matvec_batched's kernel takes hi and lo of "
+                         "equal strides with unit column stride, and x "
+                         "with unit stride along n")
+    if B > MAX_BATCH:
+        raise ValueError(f"ds_matvec_batched launches one grid slice per "
+                         f"problem, at most {MAX_BATCH}; got {B}")
+    y = torch.empty(B, m, dtype=torch.float64, device=x.device)
+    if m == 0 or B == 0:
+        return y
+    lib = _lib()
+    lda, a_bs = hi.stride(1), hi.stride(0)
+    x_bs = x.stride(0)
+    # 16-byte loads need every problem's rows of hi/lo and its x to start
+    # on 16-byte boundaries: the base pointers aligned, and the row and
+    # batch strides multiples of 4 floats (hi, lo) and 2 doubles (x)
+    ptrs = (hi.data_ptr(), lo.data_ptr(), x.data_ptr())
+    vec = int(n % 4 == 0 and lda % 4 == 0 and a_bs % 4 == 0
+              and x_bs % 2 == 0 and all(p % 16 == 0 for p in ptrs))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.scs_ds_matvec(hi.data_ptr(), lo.data_ptr(), x.data_ptr(),
+                                y.data_ptr(), m, n, lda, B, a_bs, x_bs, m,
+                                vec, stream)
+    if err != 0:
+        msg = lib.scs_cuda_error_string(err).decode()
+        raise RuntimeError(f"ds_matvec_batched kernel launch failed: {msg} "
+                           f"({err})")
+    batched_launches += 1
+    return y
+
+
 class DsOperator:
-    """Loop-invariant double-single operator for A and A' applies."""
+    """Loop-invariant double-single operator for A and A' applies, of one
+    matrix (m, n) or of a stack of them (B, m, n)."""
 
     def __init__(self, A: torch.Tensor):
-        self.m, self.n = A.shape
+        self.batched = A.dim() == 3
+        self.m, self.n = A.shape[-2:]
         self.fwd = split_operand(A)
-        self.bwd = split_operand(A.T)
+        self.bwd = split_operand(A.transpose(-2, -1))
+
+    def _apply(self, split: DsSplit, x: torch.Tensor) -> torch.Tensor:
+        if self.batched:
+            return ds_matvec_batched(split, x)
+        return ds_matvec(split, x)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return ds_matvec(self.fwd, x)
+        return self._apply(self.fwd, x)
 
     def rmatvec(self, z: torch.Tensor) -> torch.Tensor:
-        return ds_matvec(self.bwd, z)
+        return self._apply(self.bwd, z)

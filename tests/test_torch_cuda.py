@@ -13,6 +13,7 @@ import torch
 from scs_tpu_torch import ConeSpec, Settings, Workspace
 from scs_tpu_torch.models import gen_planted
 from scs_tpu_torch.ops import dsmatvec
+from scs_tpu_torch.parallel import make_batch_solver
 
 pytestmark = pytest.mark.cuda
 
@@ -75,3 +76,75 @@ def test_mixed_solve_on_the_card_matches_the_plain_version(cuda):
     assert launches >= 4 * info.iter
     assert abs(info.pobj - ref.pobj) <= 1e-4 * (1 + abs(ref.pobj))
     assert 0.8 <= info.iter / ref.iter <= 1.25
+
+
+BATCHED_SHAPES = [(1024, 400, 100), (3, 37, 101), (4, 16, 300), (8, 100, 100)]
+
+
+@pytest.mark.parametrize("shape", BATCHED_SHAPES)
+def test_ds_matvec_batched_kernel_matches_plain(cuda, shape):
+    """K2 against its plain version, each lane to 1e-12 of max |A| |x|."""
+    B, m, n = shape
+    rng = np.random.RandomState(B + m + n)
+    A = torch.tensor(rng.randn(B, m, n), device=cuda)
+    x = torch.tensor(rng.randn(B, n) * 22.0, device=cuda)
+    split = dsmatvec.split_operand(A)
+    before = dsmatvec.batched_launches
+    y = dsmatvec.ds_matvec_batched(split, x)
+    torch.cuda.synchronize()
+    assert dsmatvec.batched_launches == before + 1
+    ref = dsmatvec.ds_matvec_batched_plain(split, x)
+    bound = 1e-12 * torch.matmul(A.abs(), x.abs().unsqueeze(-1)).amax(1)
+    assert bool(((y - ref).abs().amax(1, keepdim=True) <= bound).all())
+
+
+def test_ds_matvec_batched_kernel_takes_strided_and_unaligned_x(cuda):
+    """x as a column slice of the (B, l) iterate (odd batch stride: the
+    scalar loads), and a gathered stack of splits."""
+    A = torch.randn(5, 64, 96, dtype=torch.float64, device=cuda)
+    split = dsmatvec.split_operand(A)
+    u = torch.randn(5, 101, dtype=torch.float64, device=cuda)
+    for x in (u[:, 1:97], u[:, 4:100]):
+        y = dsmatvec.ds_matvec_batched(split, x)
+        torch.testing.assert_close(
+            y, dsmatvec.ds_matvec_batched_plain(split, x), rtol=1e-12,
+            atol=1e-12)
+    idx = torch.tensor([4, 0, 2], device=cuda)
+    sub = dsmatvec.DsSplit(split.hi[idx], split.lo[idx])
+    x = u[idx, :96]
+    torch.testing.assert_close(dsmatvec.ds_matvec_batched(sub, x),
+                               dsmatvec.ds_matvec_batched_plain(sub, x),
+                               rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="at most 65535"):
+        big = dsmatvec.split_operand(torch.zeros(65536, 1, 4,
+                                                 dtype=torch.float64,
+                                                 device=cuda))
+        dsmatvec.ds_matvec_batched(big, torch.zeros(65536, 4,
+                                                    dtype=torch.float64,
+                                                    device=cuda))
+
+
+def test_mixed_batch_on_the_card_matches_the_plain_version(cuda):
+    """The mixed batched solve through K2 against the same solve on the
+    CPU through its plain version: the same statuses, objectives within
+    1e-4 (1 + |pobj|), iteration counts within [0.8, 1.25]."""
+    spec = ConeSpec(z=5, l=20, q=(5, 5, 5, 10))
+    probs = [gen_planted(spec, n=30, seed=3 + i, density=0.3)
+             for i in range(6)]
+    A, b, c = (torch.stack([getattr(p.problem, k) for p in probs])
+               for k in ("A", "b", "c"))
+    bnd = torch.zeros(6, 0, dtype=torch.float64)
+    dsmatvec.batched_launches = 0
+    res = make_batch_solver(spec, Settings(linsys="direct"))(
+        A.to(cuda), b.to(cuda), c.to(cuda), bnd.to(cuda), bnd.to(cuda))
+    launches = dsmatvec.batched_launches
+    ref = make_batch_solver(spec, Settings(linsys="direct",
+                                           mixed_precision=True),
+                            device="cpu", ds_split=True)(A, b, c, bnd, bnd)
+    assert torch.equal(res.status.cpu(), ref.status)
+    assert bool((ref.status == 1).all())
+    assert launches >= 4 * int(res.iters.max())
+    assert bool(((res.pobj.cpu() - ref.pobj).abs()
+                 <= 1e-4 * (1 + ref.pobj.abs())).all())
+    ratio = res.iters.cpu().double() / ref.iters.double()
+    assert bool(((0.8 <= ratio) & (ratio <= 1.25)).all())

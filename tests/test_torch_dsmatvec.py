@@ -1,5 +1,6 @@
-"""scs_tpu_torch.ops.dsmatvec (kernel K1) against the JAX package's Pallas
-kernel run in interpret mode, and against float64 numpy.
+"""scs_tpu_torch.ops.dsmatvec (kernels K1 and K2) against the JAX
+package's Pallas kernels run in interpret mode, and against float64
+numpy.
 
 On the CPU the wrapper runs the kernel's plain version; the CUDA kernel
 itself is compared with that plain version on the card
@@ -102,3 +103,83 @@ def test_kernel_path_raises_without_cuda():
         with pytest.raises(RuntimeError):
             _build.load("dsmatvec")
 
+
+
+# ---- K2: the batched matvec ----
+
+BATCHED_SHAPES = [(3, 40, 10), (2, 37, 101), (4, 16, 300)]
+
+
+def _batched_inputs(B, m, n):
+    rng = np.random.RandomState(B + m + n)
+    return rng.randn(B, m, n), rng.randn(B, n) * 22.0
+
+
+@pytest.mark.parametrize("shape", BATCHED_SHAPES)
+def test_batched_matches_jax_interpret_kernel(shape):
+    B, m, n = shape
+    A, x = _batched_inputs(B, m, n)
+    splits = [jax_ds.split_operand(jnp.asarray(A[i])) for i in range(B)]
+    hi = jnp.stack([s[0] for s in splits])
+    lo = jnp.stack([s[1] for s in splits])
+    ref = np.asarray(jax_ds._ds_matvec_batched(hi, lo, jnp.asarray(x), m=m,
+                                               n=n, interpret=True))
+    split = dsmatvec.split_operand(torch.tensor(A))
+    before = dsmatvec.batched_launches
+    y = dsmatvec.ds_matvec_batched(split, torch.tensor(x)).numpy()
+    assert dsmatvec.batched_launches == before    # CPU: the plain version
+    assert y.shape == (B, m)
+    # the same bounds as K1's, lane by lane
+    for i in range(B):
+        assert (np.max(np.abs(y[i] - ref[i])) / (np.max(np.abs(ref[i])) + 1.0)
+                < 1e-8)
+        exact = A[i] @ x[i]
+        assert (np.max(np.abs(y[i] - exact))
+                <= 1e-12 * np.max(np.abs(A[i]) @ np.abs(x[i])))
+
+
+@pytest.mark.parametrize("shape", BATCHED_SHAPES)
+def test_batched_split_is_the_unpadded_jax_split_lane_by_lane(shape):
+    B, m, n = shape
+    A, _ = _batched_inputs(B, m, n)
+    hi, lo = dsmatvec.split_operand(torch.tensor(A))
+    assert hi.shape == lo.shape == (B, m, n)
+    assert hi.is_contiguous() and lo.is_contiguous()
+    for i in range(B):
+        jhi, jlo = jax_ds.split_operand(jnp.asarray(A[i]))
+        np.testing.assert_array_equal(np.asarray(jhi)[:m, :n], hi[i].numpy())
+        np.testing.assert_array_equal(np.asarray(jlo)[:m, :n], lo[i].numpy())
+
+
+def test_batched_takes_a_column_slice_of_the_iterate():
+    """x as the solver passes it: a column slice of a (B, l) iterate, with
+    batch stride l; the same result as a contiguous copy."""
+    A, _ = _batched_inputs(3, 9, 5)
+    u = torch.tensor(np.random.RandomState(0).randn(3, 17))
+    x = u[:, 4:9]
+    assert not x.is_contiguous()
+    split = dsmatvec.split_operand(torch.tensor(A))
+    torch.testing.assert_close(dsmatvec.ds_matvec_batched(split, x),
+                               dsmatvec.ds_matvec_batched(split,
+                                                          x.contiguous()),
+                               rtol=0, atol=0)
+
+
+def test_batched_operator_and_bad_operands():
+    A, x = _batched_inputs(2, 6, 4)
+    At = torch.tensor(A)
+    op = dsmatvec.DsOperator(At)
+    z = torch.tensor(np.random.RandomState(3).randn(2, 6))
+    ref = np.einsum("bmn,bm->bn", A, z.numpy())
+    assert np.max(np.abs(op.rmatvec(z).numpy() - ref)) < 1e-12
+    split = dsmatvec.split_operand(At)
+    with pytest.raises(ValueError):
+        dsmatvec.ds_matvec_batched(split, torch.tensor(x[:1]))
+    with pytest.raises(TypeError):
+        dsmatvec.ds_matvec_batched(split, torch.tensor(x, dtype=torch.float32))
+    with pytest.raises(ValueError):
+        dsmatvec.ds_matvec_batched(dsmatvec.DsSplit(split.hi, split.lo[0]),
+                                   torch.tensor(x))
+    with pytest.raises(ValueError):
+        dsmatvec.ds_matvec_batched(
+            dsmatvec.split_operand(At.to("meta")), torch.tensor(x).to("meta"))

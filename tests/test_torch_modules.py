@@ -25,7 +25,8 @@ from scs_tpu.cones import project as j_project
 from scs_tpu.linsys import Mats as JMats
 from scs_tpu.linsys import direct as j_direct
 from scs_tpu.models import gen_planted as j_gen_planted
-from scs_tpu_torch import accel, config, convert, equilibrate, solver
+from scs_tpu_torch import accel, config, convert, equilibrate, parallel
+from scs_tpu_torch import solver
 from scs_tpu_torch import validation
 from scs_tpu_torch.cones import project
 from scs_tpu_torch.linsys import Mats
@@ -281,6 +282,31 @@ def test_anderson_matches(kw):
     for name in ("it", "n_accept", "n_reject", "n_safeguard_reject"):
         assert int(getattr(ta, name)) == int(getattr(ja, name)), name
     assert int(ta.n_accept) + int(ta.n_reject) > 0
+
+
+def test_batch_from_numpy_round_trip():
+    jspec = scs_tpu.ConeSpec(l=6)
+    probs = [j_gen_planted(jspec, n=3, seed=i, with_P=True) for i in (1, 2)]
+    arrays = [np.stack([np.asarray(getattr(p.problem, k)) for p in probs])
+              for k in ("A", "b", "c", "P")]
+    tA, tP, tb, tc, tbu, tbl = convert.batch_from_numpy(*arrays)
+    for got, ref in zip((tA, tb, tc, tP), arrays):
+        assert got.dtype == torch.float64
+        np.testing.assert_array_equal(got.numpy(), ref)
+    assert tbu.shape == tbl.shape == (2, 0)
+    assert convert.batch_from_numpy(*arrays[:3])[1] is None
+    bnd = np.ones((2, 3))
+    np.testing.assert_array_equal(
+        convert.batch_from_numpy(*arrays, bu=bnd, bl=-bnd)[5].numpy(), -bnd)
+    stg = convert.settings_from_dict(dataclasses.asdict(
+        scs_tpu.Settings(linsys="direct")))
+    spec = convert.spec_from_dict(dataclasses.asdict(jspec))
+    res = parallel.make_batch_solver(spec, stg, has_P=True, device="cpu")(
+        tA, tP, tb, tc, tbu, tbl)
+    out = convert.solve_result_to_numpy(res)
+    assert out["x"].shape == (2, 3) and out["status"].dtype == np.int64
+    np.testing.assert_array_equal(out["iters"], res.iters.numpy())
+    assert out["pobj"].shape == (2,)
 
 
 _FORBIDDEN = re.compile(
