@@ -16,15 +16,20 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. the headline problem of bench.py (z=40, l=120, 8 SOC blocks, n=100);
   5. the headline batch of bench.py: B=1024 problems of that family
      (seeds 1000-2023) through make_chunked_batch_solver, mixed (the
-     default there) with kernel K2's launch count read around the solve,
-     then the same batch in pure float64;
+     default there, its fast phase with float32 state) with the launch
+     counts of kernels K2 and K3 read around the solve; then the same
+     batch mixed with float64 state (fast_f32=False) and in pure float64;
   6. BatchWorkspace at B=256: a cold solve, b shifted by 1 %, a warm
-     solve;
+     solve; then its first 64 lanes mixed (float64 state) at eps 1e-7,
+     below the fast phase's floor, so that every lane goes through the
+     polish phase;
   7. a profile of 100 iterations of the large SOCP, mixed and pure, and
-     of 50 batched steps of the headline batch, mixed (launches, device
-     busy share, the kernels that take the most device time, the
-     operators that take the most host time).
-Phase 2 also holds K2 against its plain version at the batched shapes.
+     of 50 batched steps of the headline batch's float32-state phase
+     (launches, device busy share, the kernels that take the most device
+     time, the operators that take the most host time), and the batched
+     Anderson QR against torch.linalg.qr.
+Phase 2 also holds K2 and K3 against their plain versions at the batched
+shapes.
 The second-to-last line is a JSON object with one entry per kernel, the
 last line {"ok": true, "device": {...}}.
 """
@@ -39,13 +44,15 @@ import time
 import numpy as np
 import torch
 
-from scs_tpu_torch import Settings, Workspace
+from scs_tpu_torch import Settings, Workspace, accel
 from scs_tpu_torch.demo_socp import make_spec
 from scs_tpu_torch.models import gen_planted
 from scs_tpu_torch.ops import _build, dsmatvec
 from scs_tpu_torch.parallel import (BatchWorkspace,
                                     make_chunked_batch_solver,
                                     make_solver_parts)
+from scs_tpu_torch.parallel import batch as batch_mod
+from scs_tpu_torch.solver_batched import BatchedIteration
 from scs_tpu_torch.types import ConeSpec
 
 # H100 SXM, NVIDIA's data sheet: HBM3 bandwidth and float64 (non-tensor)
@@ -122,11 +129,14 @@ def ds_matvec_case(m: int, n: int, seed: int) -> dict:
 
 
 def ds_matvec_batched_case(B: int, m: int, n: int, seed: int,
-                           strided: bool = False) -> dict:
-    """K2 against its plain version at one (B, m, n), each lane held to
-    1e-12 max(|A[b]| |x[b]|); times of the kernel, the plain version and
-    torch.matmul on the float64 stack. strided: x is a column slice of a
-    wider (B, n + 13) tensor, as the solver passes u[:, :n]."""
+                           strided: bool = False, x32: bool = False,
+                           pair: bool = False) -> dict:
+    """K2 (or K3, `pair`) against its plain version at one (B, m, n), each
+    lane held to 1e-12 max(|A[b]| |x[b]|) (K3: the pair's sum); times of
+    the kernel, the plain version and torch.matmul on the float64 stack.
+    strided: x is a column slice of a wider (B, n + 13) tensor, as the
+    solver passes u[:, :n]. x32: x in float32 (the float32-state
+    phase)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     A = torch.randn(B, m, n, generator=gen, dtype=torch.float64,
                     device="cuda")
@@ -136,29 +146,46 @@ def ds_matvec_batched_case(B: int, m: int, n: int, seed: int,
     else:
         x = torch.randn(B, n, generator=gen, dtype=torch.float64,
                         device="cuda")
+    if x32:
+        x = x.to(torch.float32)
     split = dsmatvec.split_operand(A)
     A64 = split.hi.double() + split.lo.double()
-    y = dsmatvec.ds_matvec_batched(split, x)
+    if pair:
+        kernel, plain = (dsmatvec.ds_matvec_pair_batched,
+                         dsmatvec.ds_matvec_pair_batched_plain)
+    else:
+        kernel, plain = (dsmatvec.ds_matvec_batched,
+                         dsmatvec.ds_matvec_batched_plain)
+
+    def value(out):
+        return out.hi.double() + out.lo.double() if pair else out.double()
+
+    y = value(kernel(split, x))
     torch.cuda.synchronize()
-    ref = dsmatvec.ds_matvec_batched_plain(split, x)
+    ref = value(plain(split, x))
+    x64 = x.double()
     err_lane = (y - ref).abs().amax(dim=1)
-    tol_lane = 1e-12 * torch.matmul(A64.abs(), x.abs().unsqueeze(-1)
+    tol_lane = 1e-12 * torch.matmul(A64.abs(), x64.abs().unsqueeze(-1)
                                     ).squeeze(-1).amax(dim=1)
+    if x32 and not pair:
+        # a float32 y: both sides round the float64 sum once
+        tol_lane = tol_lane + 2.0 ** -23 * ref.abs().amax(dim=1)
     err = float(err_lane.max())
+    name = "ds_matvec_pair_batched" if pair else "ds_matvec_batched"
     check(bool(torch.isfinite(err_lane).all())
           and bool((err_lane <= tol_lane).all()),
-          f"ds_matvec_batched {B}x{m}x{n}: max|kernel - plain| = {err:.3e}"
-          f" above 1e-12 max(|A||x|) in some lane")
-    nbytes = 8 * B * m * n + 8 * B * n + 8 * B * m
+          f"{name} {B}x{m}x{n}: max|kernel - plain| = {err:.3e} above "
+          f"its limit in some lane")
+    xb, yb = (4 if x32 else 8), (8 if pair or not x32 else 4)
+    nbytes = 8 * B * m * n + xb * B * n + yb * B * m
     flops = 3 * B * m * n
     bound = max(nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS) * 1e3
-    xc = x.unsqueeze(-1)
+    xc = x64.unsqueeze(-1)
     return {
-        "shape": [B, m, n], "strided_x": strided, "max_abs_err": err,
-        "tol": float(tol_lane.min()),
-        "ms": median_ms(lambda: dsmatvec.ds_matvec_batched(split, x)),
-        "plain_ms": median_ms(
-            lambda: dsmatvec.ds_matvec_batched_plain(split, x)),
+        "name": name, "shape": [B, m, n], "strided_x": strided,
+        "x32": x32, "max_abs_err": err, "tol": float(tol_lane.min()),
+        "ms": median_ms(lambda: kernel(split, x)),
+        "plain_ms": median_ms(lambda: plain(split, x)),
         "library_ms": median_ms(lambda: torch.matmul(A64, xc)),
         "bound_ms": bound,
         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
@@ -175,9 +202,38 @@ def headline_batch(spec, B: int, seed0: int):
     return A, b, c, np.asarray([p.opt for p in probs])
 
 
-def solve_batch(spec, batch, stg, label):
+def verify_termination(batch, res, stg, label) -> None:
+    """SCS's termination test for every lane, recomputed in float64 from
+    the original A, b, c and the returned x, y, s (the reference test
+    suite's verify_solution_correct, test/problem_utils.h:107-249):
+    primal and dual residuals and the gap within eps_abs + eps_rel times
+    their scale, with 1 % slack for the round-off between this recomputation
+    and the solver's own check."""
+    A, b, c, _ = batch
+    x, y, s = res.x, res.y, res.s
+    ax = torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
+    aty = torch.matmul(A.transpose(1, 2), y.unsqueeze(-1)).squeeze(-1)
+    ctx, bty = (c * x).sum(1), (b * y).sum(1)
+
+    def inf(t):
+        return t.abs().amax(1)
+
+    tests = {
+        "res_pri": (inf(ax + s - b),
+                    torch.maximum(torch.maximum(inf(b), inf(s)), inf(ax))),
+        "res_dual": (inf(aty + c), torch.maximum(inf(c), inf(aty))),
+        "gap": ((ctx + bty).abs(), torch.maximum(ctx.abs(), bty.abs())),
+    }
+    for name, (val, scl) in tests.items():
+        lim = 1.01 * (stg.eps_abs + stg.eps_rel * scl)
+        bad = int((~(val <= lim)).sum())
+        check(bad == 0, f"{label}: {bad} lanes fail SCS's {name} test "
+              f"recomputed from the original data")
+
+
+def solve_batch(spec, batch, stg, label, tol=1e-3):
     """The batch through make_chunked_batch_solver on the card, with the
-    K2 launch count read around the solve. Returns the numbers."""
+    K2 and K3 launch counts read around the solve. Returns the numbers."""
     A, b, c, opts = batch
     B = A.shape[0]
     bnd = torch.zeros(B, 0, dtype=torch.float64, device="cuda")
@@ -186,15 +242,20 @@ def solve_batch(spec, batch, stg, label):
     torch.cuda.reset_peak_memory_stats()
     dsmatvec.launches = 0
     dsmatvec.batched_launches = 0
+    dsmatvec.pair_launches = 0
     t0 = time.perf_counter()
     res = solver(A, b, c, bnd, bnd)
     status = res.status.cpu().numpy()
     wall = time.perf_counter() - t0
     launches = dsmatvec.batched_launches
+    pair = dsmatvec.pair_launches
     check(dsmatvec.launches == 0, f"{label}: the batch launched K1")
     iters = res.iters.cpu().numpy()
     pobj = res.pobj.cpu().numpy()
     steps = sum(lv[3] for lv in solver.levels)
+    by_phase = {}
+    for lv in solver.levels:
+        by_phase[lv[0]] = by_phase.get(lv[0], 0) + lv[3]
     err = np.abs(pobj - opts) / (1 + np.abs(opts))
     levels = [(ph, bk, al, n, round(sec, 3))
               for ph, bk, al, n, sec in solver.levels]
@@ -204,16 +265,21 @@ def solve_batch(spec, batch, stg, label):
           f"lane-iterations/s, {steps} lockstep steps, "
           f"{wall / max(steps, 1) * 1e3:.3f} ms/step, levels (phase, "
           f"bucket, alive at end, steps, s) {levels}, "
-          f"{solver.machinery.polished} lanes polished, K2 launches "
-          f"{launches}, max pobj rel err {err.max():.2e}, peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{solver.machinery.polished} lanes polished, float32 state "
+          f"{solver.machinery.f32_state}, K2 launches {launches}, K3 "
+          f"launches {pair}, max pobj rel err {err.max():.2e}, max res_pri "
+          f"{float(res.res_pri.max()):.2e}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(bool(np.all(status == 1)),
           f"{label}: statuses {np.unique(status, return_counts=True)}")
-    check(bool(np.all(err <= 1e-3)), f"{label}: objective error "
-          f"{err.max():.2e}")
+    check(bool(np.all(err <= tol)), f"{label}: objective error "
+          f"{err.max():.2e} above {tol:.0e}")
     check(bool(torch.isfinite(res.x).all()), f"{label}: x not finite")
+    verify_termination(batch, res, stg, label)
     return {"status": status, "pobj": pobj, "iters": iters, "wall": wall,
-            "steps": steps, "launches": launches}
+            "steps": steps, "launches": launches, "pair": pair,
+            "by_phase": by_phase, "polished": solver.machinery.polished,
+            "f32_state": solver.machinery.f32_state}
 
 
 def warm_batch(spec, batch):
@@ -341,19 +407,23 @@ def profile_iterations(p, spec, mixed: bool, iters: int, label: str) -> None:
 
 def profile_batched(spec, batch, steps: int) -> None:
     """`profile_iterations` for `steps` lockstep steps of the batched
-    solver, mixed (its default on the card)."""
+    solver's fast phase as the default mixed solve runs it on the card:
+    float32 state, floored targets."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     A, b, c, _ = batch
-    init_fn, chunk_fn, _ = make_solver_parts(spec, Settings(linsys="direct"))
-    data, st0 = init_fn(A, None, b, c)
-    chunk_fn(data, st0, steps)
+    stg = Settings(linsys="direct")
+    init_fn, _, _ = make_solver_parts(spec, stg)
+    data, st = init_fn(A, None, b, c)
+    fdata, st0 = batch_mod.f32_view(batch_mod._floored_data(data), st)
+    it32 = BatchedIteration(spec, stg, True, f32_state=True)
+    it32.run(fdata, st0, steps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st = chunk_fn(data, st0, steps)
+        st = it32.run(fdata, st0, steps)[0]
         st.u.sum().item()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_us, launches, by_name = 0.0, 0, {}
@@ -366,7 +436,7 @@ def profile_batched(spec, batch, steps: int) -> None:
                         "cuLaunchKernel", "cuLaunchKernelEx"):
             launches += 1
     ran = int(st.iter.max())
-    label = f"batch B={A.shape[0]} mixed profile"
+    label = f"batch B={A.shape[0]} mixed float32-state profile"
     print(f"{label}, {ran} steps from a cold start: wall "
           f"{wall_ms / ran:.3f} ms/step under the profiler, "
           f"{launches / ran:.1f} CUDA launches/step")
@@ -383,6 +453,35 @@ def profile_batched(spec, batch, steps: int) -> None:
     for k in ops[:10]:
         print(f"    {k.self_cpu_time_total / 1e3 / ran:8.4f} ms/step "
               f"{k.count / ran:6.1f} calls/step  {k.key[:80]}")
+
+
+def anderson_qr_times(B: int, L: int, mem: int) -> None:
+    """The batched Anderson step's least-squares factorization at the
+    headline batch's shape, float32 (the mixed path's gammas): the port's
+    batched Householder QR against torch.linalg.qr on the same stack
+    followed by Q'c, each the median of 30 calls."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    A_aug = torch.randn(B, L, mem, generator=gen, device="cuda")
+    c_aug = torch.randn(B, L, 1, generator=gen, device="cuda")
+    R, qc = accel._householder_apply(A_aug, c_aug)
+    Q, R_lib = torch.linalg.qr(A_aug, mode="reduced")
+    qc_lib = Q.transpose(1, 2) @ c_aug
+    # the two agree up to the signs of R's rows
+    sgn = torch.sign(torch.diagonal(R, dim1=1, dim2=2)
+                     * torch.diagonal(R_lib, dim1=1, dim2=2))
+    diff = float((qc - sgn.unsqueeze(-1) * qc_lib).abs().max())
+    check(diff <= 1e-3 * float(qc_lib.abs().max()),
+          f"Anderson QR: batched Householder and torch.linalg.qr differ by "
+          f"{diff:.2e}")
+    ours = median_ms(lambda: accel._householder_apply(A_aug, c_aug))
+
+    def lib():
+        Qm, _ = torch.linalg.qr(A_aug, mode="reduced")
+        return Qm.transpose(1, 2) @ c_aug
+
+    print(f"Anderson QR ({B}, {L}, {mem}) float32: batched Householder "
+          f"{ours:.4f} ms, torch.linalg.qr + Q'c {median_ms(lib):.4f} ms, "
+          f"max |Q'c difference| {diff:.2e}")
 
 
 def main() -> int:
@@ -419,18 +518,30 @@ def main() -> int:
               f"{c['library_ms']:.4f} ms")
 
     # 2b. K2 against its plain version at the batched headline's shapes
-    bshapes = [(1024, 400, 100, False), (1024, 100, 400, False),   # A, A'
-               (1024, 100, 100, False), (3, 37, 101, False),       # K, ragged
-               (1024, 400, 100, True)]                             # x slice
-    bcases = [ds_matvec_batched_case(B, m, n, seed=20 + i, strided=st)
-              for i, (B, m, n, st) in enumerate(bshapes)]
-    for c in bcases:
-        print(f"ds_matvec_batched {'x'.join(map(str, c['shape']))}"
-              f"{' (x strided)' if c['strided_x'] else ''}: max_abs_err "
+    # (B, m, n, x strided, x float32, pair output)
+    bshapes = [(1024, 400, 100, False, False, False),    # A, float64 state
+               (1024, 100, 400, False, False, False),    # A'
+               (1024, 100, 100, False, False, False),    # K
+               (3, 37, 101, False, False, False),        # ragged
+               (1024, 400, 100, True, False, False),     # x a slice
+               (1024, 400, 100, False, True, False),     # A, float32 state
+               (1024, 100, 400, True, True, False)]      # A' y, a slice
+    pshapes = [(1024, 100, 100, False, True, True),      # K3: G x
+               (3, 37, 101, False, True, True),          # ragged
+               (1024, 100, 100, True, True, True)]       # x a slice
+    bcases, pcases = ([ds_matvec_batched_case(B, m, n, seed=20 + i,
+                                              strided=st, x32=x32,
+                                              pair=pair)
+                       for i, (B, m, n, st, x32, pair) in enumerate(shapes)]
+                      for shapes in (bshapes, pshapes))
+    for c in bcases + pcases:
+        print(f"{c['name']} {'x'.join(map(str, c['shape']))}"
+              f"{' (x strided)' if c['strided_x'] else ''}"
+              f"{' (x float32)' if c['x32'] else ''}: max_abs_err "
               f"{c['max_abs_err']:.3e} (tol >= {c['tol']:.3e} per lane), "
               f"kernel {c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
               f"({c['bound_by']}), plain {c['plain_ms']:.4f} ms, "
-              f"torch.matmul {c['library_ms']:.4f} ms")
+              f"torch.matmul (float64) {c['library_ms']:.4f} ms")
 
     # host cost of one call: the wrapper's checks and the ctypes launch,
     # against torch.mv's dispatch, at a size where the device is idle
@@ -468,30 +579,76 @@ def main() -> int:
     solve_planted(gen_planted(head, n=100, seed=1000, density=0.1), head,
                   "headline")
 
-    # 5. the headline batch, mixed (K2 counts set to 0 just before), then
-    # in pure float64
+    # 5. the headline batch, mixed (the K2 and K3 counts set to 0 just
+    # before): its fast phase runs float32 state, K2 for A' z and A x and
+    # K3 for the two refinement residuals of every step. Then mixed with
+    # float64 state (K2 four times a step) and pure float64.
+    # objectives: SCS's eps 1e-4 bounds the residuals and the gap, which
+    # every run is held to (verify_termination), not the distance to the
+    # planted optimum. The float64-state runs land within 1e-3 (1 + |opt|)
+    # of it and of each other; the float32-state phase ends farther out on
+    # a few lanes (at most 1.2e-3 to 2.0e-3 over four runs on an H100: the
+    # zero cone's rows amplify the float32 rounding, PERF.md), so its gates
+    # are 5e-3.
     batch = headline_batch(head, 1024, 1000)
     mixed_b = solve_batch(head, batch,
                           Settings(linsys="direct", chunk_iters=250),
-                          "headline batch mixed")
-    check(mixed_b["launches"] >= 4 * mixed_b["steps"],
-          f"headline batch: {mixed_b['launches']} K2 launches < 4 x "
+                          "headline batch mixed", tol=5e-3)
+    fast = mixed_b["by_phase"].get("fast", 0)
+    check(mixed_b["f32_state"], "headline batch: the default mixed solve on "
+          "the card did not take the float32-state fast phase")
+    check(mixed_b["pair"] >= 2 * fast and fast > 0,
+          f"headline batch: {mixed_b['pair']} K3 launches < 2 x {fast} "
+          f"float32-state steps")
+    check(mixed_b["launches"] >= 2 * mixed_b["steps"],
+          f"headline batch: {mixed_b['launches']} K2 launches < 2 x "
           f"{mixed_b['steps']} steps")
+    mixed64_b = solve_batch(head, batch,
+                            Settings(linsys="direct", chunk_iters=250,
+                                     fast_f32=False),
+                            "headline batch mixed float64 state")
+    check(mixed64_b["launches"] >= 4 * mixed64_b["steps"]
+          and mixed64_b["pair"] == 0,
+          f"headline batch, float64 state: {mixed64_b['launches']} K2 "
+          f"launches < 4 x {mixed64_b['steps']} steps, or K3 launched")
     pure_b = solve_batch(head, batch,
                          Settings(linsys="direct", chunk_iters=250,
                                   mixed_precision=False),
                          "headline batch pure f64")
-    check(bool(np.array_equal(pure_b["status"], mixed_b["status"])),
-          "headline batch: pure and mixed statuses differ")
-    agree = np.abs(mixed_b["pobj"] - pure_b["pobj"]) / (
-        1 + np.abs(pure_b["pobj"]))
-    check(bool(np.all(agree <= 1e-3)),
-          f"headline batch: mixed vs pure pobj differ by {agree.max():.2e}")
+    for label, run, tol in (("mixed", mixed_b, 5e-3),
+                            ("mixed float64 state", mixed64_b, 1e-3)):
+        check(bool(np.array_equal(pure_b["status"], run["status"])),
+              f"headline batch: pure and {label} statuses differ")
+        agree = np.abs(run["pobj"] - pure_b["pobj"]) / (
+            1 + np.abs(pure_b["pobj"]))
+        check(bool(np.all(agree <= tol)),
+              f"headline batch: {label} vs pure pobj differ by "
+              f"{agree.max():.2e}, above {tol:.0e}")
     print(f"{card}, peak device memory of the last batch "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # 6. warm re-solves of a batch
+    # 6. warm re-solves of a batch, then 64 of its lanes below the fast
+    # floor: every lane polishes, the polish phase on K2 (four a step).
+    # That batch runs its fast phase with float64 state: with float32
+    # state this family needs tens of thousands of iterations to reach
+    # the floor on many lanes (PERF.md); tests/test_torch_cuda.py takes a
+    # small batch through the float32-state phase and the polish instead.
+    # 64 lanes, not 256: one lane of the 256 polishes for 83k iterations
+    # (310 s); the first 64 need at most ~4k.
     warm_batch(head, tuple(t[:256] for t in batch))
+    tight = solve_batch(head, tuple(t[:64] for t in batch),
+                        Settings(linsys="direct", chunk_iters=250,
+                                 eps_abs=1e-7, eps_rel=1e-7, fast_f32=False),
+                        "headline batch B=64 mixed float64 state eps 1e-7",
+                        tol=1e-5)
+    pol = tight["by_phase"].get("polish", 0)
+    fast = tight["by_phase"].get("fast", 0)
+    check(tight["polished"] == 64 and pol > 0,
+          f"eps 1e-7 batch: {tight['polished']} lanes polished in {pol} "
+          f"steps, not all 64")
+    check(tight["launches"] >= 4 * (pol + fast) and tight["pair"] == 0,
+          f"eps 1e-7 batch: K2 {tight['launches']}, K3 {tight['pair']} "
+          f"launches for {fast} fast and {pol} polish steps")
 
     # 7. where the time of an iteration goes, mixed and pure, on the large
     # SOCP (100 iterations each): first unprofiled, in turns, then under
@@ -507,6 +664,7 @@ def main() -> int:
     profile_iterations(big_p, spec, True, 100, "large SOCP mixed")
     profile_iterations(big_p, spec, False, 100, "large SOCP pure f64")
     profile_batched(head, batch, 50)
+    anderson_qr_times(1024, 501 + 10, 10)
 
     main_case = cases[0]
     kernels = [{
@@ -529,6 +687,16 @@ def main() -> int:
         "bound_ms": bcases[0]["bound_ms"],
         "bound_by": bcases[0]["bound_by"],
         "library_ms": bcases[0]["library_ms"],
+    }, {
+        "name": "ds_matvec_pair_batched", "route": "cuda",
+        "source": "scs_tpu_torch/csrc/dsmatvec.cu",
+        "replaces": "scs_tpu/ops/dsmatvec.py:471",
+        "launches": mixed_b["pair"],
+        "max_abs_err": max(c["max_abs_err"] for c in pcases),
+        "ms": pcases[0]["ms"], "plain_ms": pcases[0]["plain_ms"],
+        "bound_ms": pcases[0]["bound_ms"],
+        "bound_by": pcases[0]["bound_by"],
+        "library_ms": pcases[0]["library_ms"],
     }]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -12,9 +12,10 @@ the device. The state is replaced, not updated in place.
 The `*_batched` functions run B independent accelerators at once, every
 field with a leading batch axis: each lane seeds, steps, accepts, rejects
 and resets on its own. Their least-squares solve is a Householder QR
-written in batched tensor operations (`_householder_apply`): a library QR
-of a (B, l + mem, mem) stack runs one factorization per problem on the
-card, which would cost B launches per application.
+written in batched tensor operations (`_householder_apply`), a fixed
+number of launches whatever B is: on an H100 (700 W) at (1024, 511, 10)
+in float32 it takes 4.2 ms against 104 ms for `torch.linalg.qr` and Q'c
+on the same stack (`chip_smoke.py`'s `anderson_qr_times`).
 
 Usage pattern (aa.h:72-94):
     if i > 0 and i % interval == 0: state, v, norm = aa_apply(state, f=v, x=v_prev)

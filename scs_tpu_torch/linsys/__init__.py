@@ -54,36 +54,54 @@ def resolve_mixed(stg, device: torch.device) -> bool:
     return stg.dtype == torch.float64 and torch.device(device).type != "cpu"
 
 
-def resolve_fast_f32(stg) -> bool:
+def resolve_ds_split(ds_split: Optional[bool], device, mixed: bool) -> bool:
+    """Whether the mixed path builds the double-single operand splits that
+    its matvecs read. On CUDA it always does, and they go to the kernels:
+    asking for a mixed solve without them raises. On the CPU they are off
+    unless `ds_split` is set, which makes the mixed path run the kernels'
+    plain versions (the tests' way of driving the kernel path)."""
+    on_cuda = torch.device(device).type == "cuda"
+    if ds_split is None:
+        return on_cuda
+    if mixed and on_cuda and not ds_split:
+        raise ValueError("ds_split=False: on CUDA the mixed path always runs "
+                         "the double-single kernels; the switch is for CPU "
+                         "tests")
+    return bool(ds_split)
+
+
+def resolve_fast_f32(stg, mixed: bool, ds: bool) -> bool:
     """Resolve Settings.fast_f32, the float32-state fast phase of the
-    batched solvers. It needs kernel K3 (the double-single pair matvec)
-    and the compensated reductions, which are not ported: auto (None)
-    resolves to off, and asking for it raises (ROADMAP queue 1, item 9b).
-    The JAX package turns it on wherever mixed is on, even where its
-    kernels are missing (ROADMAP queue 3, R2); here it waits for them."""
-    if stg.fast_f32:
-        raise NotImplementedError(
-            "Settings.fast_f32 (the float32-state fast phase) is not ported "
-            "yet (ROADMAP queue 1, item 9b)")
-    return False
+    batched solvers: auto (None) follows the mixed flag, as in the JAX
+    package, and explicit True needs mixed. The phase leans on the
+    double-single kernels (K2, and K3 for its refinement residual), so it
+    runs only where the operand splits exist (`ds`): auto resolves to off
+    without them, and asking for it without them raises. The JAX package
+    turns it on even where its kernels are missing (ROADMAP queue 3,
+    R2)."""
+    if not mixed:
+        return False
+    want = True if stg.fast_f32 is None else bool(stg.fast_f32)
+    if want and not ds:
+        if stg.fast_f32:
+            raise ValueError(
+                "Settings.fast_f32 needs the double-single operand splits: "
+                "on CUDA every mixed solve has them; on the CPU pass "
+                "ds_split=True")
+        return False
+    return want
 
 
 def prepare_operands(backend, A, P, n_zero: int, mixed: bool,
                      ds_split: Optional[bool] = None):
-    """The backend's loop-invariant operand cache (ProblemData.lin_cache).
-
-    The double-single splits that the mixed path's matvecs read are built
-    for a mixed solve on CUDA, where they go to the kernel. `ds_split`
-    forces them on or off; on the CPU, on makes the mixed path run the
-    kernel's plain version."""
-    if ds_split is None:
-        ds_split = A.device.type == "cuda"
-    return backend.precompute(A, P, n_zero, ds=mixed and ds_split)
+    """The backend's loop-invariant operand cache (ProblemData.lin_cache),
+    with the double-single splits where `resolve_ds_split` says so."""
+    ds = resolve_ds_split(ds_split, A.device, mixed)
+    return backend.precompute(A, P, n_zero, ds=mixed and ds)
 
 
 def prepare_operands_batched(backend, A, P, n_zero: int, mixed: bool,
-                             ds_split: Optional[bool] = None):
-    """`prepare_operands` for a (B, m, n) stack (the batched solvers)."""
-    if ds_split is None:
-        ds_split = A.device.type == "cuda"
-    return backend.precompute_batched(A, P, n_zero, ds=mixed and ds_split)
+                             ds: bool):
+    """`prepare_operands` for a (B, m, n) stack (the batched solvers);
+    `ds` as resolved by `resolve_ds_split`."""
+    return backend.precompute_batched(A, P, n_zero, ds=mixed and ds)

@@ -20,6 +20,16 @@ vmapped precompute/derive/solve): batched products, batched Cholesky
 factors, and the batched double-single kernel (K2). They are separate from
 the one-problem functions so that the one-problem path keeps its own
 rounding.
+
+The float32-state regime (the batched solvers' `fast_f32` phase, whose
+view of the problem holds A, K and the state in float32 and the splits as
+they are): the factor carries a third member, the double-single split of
+G itself, and the refinement residual r = b - G x is read from it as a
+float32 pair (kernel K3), so that it cancels at ulp(r), not ulp(G x). The
+derived factor has one structure per regime, (Ginv32, scale) with float64
+state and (Ginv32, scale, ds_G) with float32 state; `enter_f32_state` and
+`leave_f32_state` convert between them at the phase's ends (the JAX
+package mixes the two inside one loop, ROADMAP queue 3, R1).
 """
 
 from __future__ import annotations
@@ -179,7 +189,8 @@ def _cholesky_batched(G):
 def derive_batched(mats, diag_r, scale, mixed: bool = False):
     """`derive` for a batch: diag_r (B, l), scale (B,). Returns the float64
     factors (B, n, n) (pure) or (float32 inverses (B, n, n), scale)
-    (mixed)."""
+    (mixed), and with float32 operands (the float32-state regime) also the
+    split of G (see the module docstring)."""
     n = mats.A.shape[2]
     G = scale[:, None, None] * mats.cache.K + torch.diag_embed(diag_r[:, :n])
     if mats.P is not None:
@@ -188,7 +199,33 @@ def derive_batched(mats, diag_r, scale, mixed: bool = False):
         return _cholesky_batched(G)
     L32 = _cholesky_batched(G.to(torch.float32))
     eye = torch.eye(n, dtype=torch.float32, device=G.device)
-    return (torch.cholesky_solve(eye.expand_as(L32), L32), scale)
+    Ginv32 = torch.cholesky_solve(eye.expand_as(L32), L32)
+    if mats.A.dtype == torch.float32:
+        return (Ginv32, scale, _ds_gram(mats, diag_r, scale))
+    return (Ginv32, scale)
+
+
+def _ds_gram(mats, diag_r, scale) -> DsSplit:
+    if mats.cache.ds_K is None:
+        raise ValueError("the float32-state regime needs the double-single "
+                         "split of K")
+    n = mats.A.shape[2]
+    return dsmatvec.ds_compose_gram_batched(mats.cache.ds_K, scale,
+                                            diag_r[:, :n], mats.P)
+
+
+def enter_f32_state(mats, diag_r, derived):
+    """The mixed factor of the float64-state regime as the float32-state
+    regime holds it: `mats`, `diag_r` and `derived` already cast to
+    float32, the split of G added."""
+    Ginv32, scale = derived
+    return (Ginv32, scale, _ds_gram(mats, diag_r, scale))
+
+
+def leave_f32_state(derived):
+    """The float32-state regime's factor in the float64-state regime's
+    structure: the split of G dropped, scale back in float64."""
+    return (derived[0], derived[1].to(torch.float64))
 
 
 def _gram_matvec_batched(mats, diag_r, scale, x):
@@ -218,7 +255,8 @@ def solve_batched(mats, diag_r, derived, rhs):
         its = 0
         y = (bmv(mats.A, x) - ry) / r_y
     else:  # mixed: float32 inverse-apply + float64 refinement over K
-        Ginv32, scale = derived
+        Ginv32, scale = derived[:2]
+        ds_G = derived[2] if len(derived) > 2 else None
         f32, dtype = torch.float32, rhs.dtype
         z = ry / r_y
         b = rx + (dsmatvec.ds_matvec_batched(cache.ds_bwd, z)
@@ -226,7 +264,12 @@ def solve_batched(mats, diag_r, derived, rhs):
                   else bmv(mats.A.transpose(1, 2), z))
         x = bmv(Ginv32, b.to(f32)).to(dtype)
         for _ in range(REFINE_PASSES):
-            r = b - _gram_matvec_batched(mats, diag_r, scale, x)
+            if ds_G is not None:
+                # float32 state: (b - hi) is exact, - lo rounds at ulp(r)
+                Gh, Gl = dsmatvec.ds_matvec_pair_batched(ds_G, x)
+                r = (b - Gh) - Gl
+            else:
+                r = b - _gram_matvec_batched(mats, diag_r, scale, x)
             x = x + bmv(Ginv32, r.to(f32)).to(dtype)
         its = REFINE_PASSES
         ax = (dsmatvec.ds_matvec_batched(cache.ds_fwd, x)

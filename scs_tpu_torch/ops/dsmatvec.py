@@ -1,19 +1,21 @@
 """y = A x with A held as a double-single (hi, lo) float32 pair: one
-problem (kernel K1) or a batch of problems (kernel K2).
+problem (kernel K1), a batch of problems (kernel K2), or a batch with the
+float32 pair of each sum returned unsummed (kernel K3).
 
 Counterpart of `scs_tpu/ops/dsmatvec.py` (`split_operand`, `ds_matvec`,
-its batched rule `_ds_matvec_batched`, `DsOperator`). The mixed-precision direct solve and its residual checks
-need A x, A' z and K x accurate to far below the solver's ~1e-6 noise
-line, while the operator is stored as two float32 words per element
-(hi + lo carries ~48 bits of the float64 value).
+its batched rule `_ds_matvec_batched`, `ds_matvec_pair`,
+`ds_compose_gram`, `DsOperator`). The mixed-precision direct solve and its
+residual checks need A x, A' z and K x accurate to far below the solver's
+~1e-6 noise line, while the operator is stored as two float32 words per
+element (hi + lo carries ~48 bits of the float64 value).
 
-On a CUDA tensor `ds_matvec` and `ds_matvec_batched` launch the
-hand-written kernel in `csrc/dsmatvec.cu` (built with nvcc for sm_90a at
-first use, see `_build.py`); the batched wrapper launches it with one
-`blockIdx.z` per problem. On a CPU tensor they run the plain versions
-`ds_matvec_plain` / `ds_matvec_batched_plain`, which the tests compare
-against the JAX kernels and which the chip smoke test compares against
-the CUDA kernel. Any other device raises.
+On a CUDA tensor `ds_matvec`, `ds_matvec_batched` and
+`ds_matvec_pair_batched` launch the hand-written kernel in
+`csrc/dsmatvec.cu` (built with nvcc for sm_90a at first use, see
+`_build.py`); the batched wrappers launch it with one `blockIdx.z` per
+problem. On a CPU tensor they run the plain versions (`*_plain`), which
+the tests compare against the JAX kernels and which the chip smoke test
+compares against the CUDA kernel. Any other device raises.
 
 Unlike the TPU split, the pair is not padded: the kernel masks its own
 ragged edges.
@@ -29,9 +31,10 @@ import torch
 from . import _build
 
 # launches of the CUDA kernel since the counts were last set to 0: one
-# problem (K1) and batched (K2)
+# problem (K1), batched (K2) and batched with the pair output (K3)
 launches = 0
 batched_launches = 0
+pair_launches = 0
 
 # gridDim.z, the batch index of a launch, is at most 65535
 MAX_BATCH = 65535
@@ -95,11 +98,11 @@ def ds_matvec(split: DsSplit, x: torch.Tensor) -> torch.Tensor:
     return _launch(split, x, m, n)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_longlong,
                                      ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_void_p]
 
 
 def _lib():
@@ -127,8 +130,8 @@ def _launch(split: DsSplit, x: torch.Tensor, m: int, n: int) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.scs_ds_matvec(hi.data_ptr(), lo.data_ptr(), x.data_ptr(),
-                                y.data_ptr(), m, n, n, 1, 0, 0, 0, vec,
-                                stream)
+                                y.data_ptr(), None, m, n, n, 1, 0, 0, 0, vec,
+                                0, stream)
     if err != 0:
         msg = lib.scs_cuda_error_string(err).decode()
         raise RuntimeError(f"ds_matvec kernel launch failed: {msg} ({err})")
@@ -138,9 +141,13 @@ def _launch(split: DsSplit, x: torch.Tensor, m: int, n: int) -> torch.Tensor:
 
 def ds_matvec_batched_plain(split: DsSplit, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the batched kernel: y[b] = (hi[b] + lo[b])
-    @ x[b], each element formed exactly in float64."""
+    @ x[b], each element formed exactly in float64, y in x's type."""
+    return _sum_plain(split, x).to(x.dtype)
+
+
+def _sum_plain(split: DsSplit, x: torch.Tensor) -> torch.Tensor:
     A = split.hi.to(torch.float64) + split.lo.to(torch.float64)
-    return torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
+    return torch.matmul(A, x.to(torch.float64).unsqueeze(-1)).squeeze(-1)
 
 
 def _check_batched(split: DsSplit, x: torch.Tensor) -> tuple[int, int, int]:
@@ -151,8 +158,8 @@ def _check_batched(split: DsSplit, x: torch.Tensor) -> tuple[int, int, int]:
     if hi.dtype != torch.float32 or lo.dtype != torch.float32:
         raise TypeError(f"hi and lo must be float32, got {hi.dtype}, "
                         f"{lo.dtype}")
-    if x.dtype != torch.float64:
-        raise TypeError(f"x must be float64, got {x.dtype}")
+    if x.dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"x must be float64 or float32, got {x.dtype}")
     B, m, n = hi.shape
     if x.shape != (B, n):
         raise ValueError(f"x must have shape ({B}, {n}), got "
@@ -163,58 +170,122 @@ def _check_batched(split: DsSplit, x: torch.Tensor) -> tuple[int, int, int]:
     return B, m, n
 
 
+def _batched_device(name: str, x: torch.Tensor) -> str:
+    dev = x.device.type
+    if dev not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not "
+                         f"{x.device}")
+    return dev
+
+
 def ds_matvec_batched(split: DsSplit, x: torch.Tensor) -> torch.Tensor:
-    """y (B, m) float64 with y[b] = (hi[b] + lo[b]) @ x[b] (kernel K2).
+    """y (B, m) with y[b] = (hi[b] + lo[b]) @ x[b] (kernel K2), in x's type
+    (float64, or float32 in the float32-state fast phase).
 
     CUDA tensors go to the CUDA kernel, CPU tensors to the plain version.
     The kernel reads the operands where they lie: hi and lo need unit
     column stride and equal strides, x unit stride along n; the batch and
     row strides are passed to the kernel (x is often a column slice of
     the (B, l) iterate, whose batch stride is l)."""
-    B, m, n = _check_batched(split, x)
-    dev = x.device
-    if dev.type == "cpu":
-        return ds_matvec_batched_plain(split, x)
-    if dev.type != "cuda":
-        raise ValueError(f"ds_matvec_batched runs on CUDA or CPU tensors, "
-                         f"not {dev}")
-    return _launch_batched(split, x, B, m, n)
-
-
-def _launch_batched(split: DsSplit, x: torch.Tensor, B: int, m: int,
-                    n: int) -> torch.Tensor:
     global batched_launches
+    B, m, n = _check_batched(split, x)
+    if _batched_device("ds_matvec_batched", x) == "cpu":
+        return ds_matvec_batched_plain(split, x)
+    y = torch.empty(B, m, dtype=x.dtype, device=x.device)
+    if _launch_batched("ds_matvec_batched", split, x, y, None, B, m, n):
+        batched_launches += 1
+    return y
+
+
+def ds_matvec_pair_batched_plain(split: DsSplit,
+                                 x: torch.Tensor) -> DsSplit:
+    """Plain PyTorch version of K3: the float64 product of
+    `ds_matvec_batched_plain`, returned as its float32 pair (hi, lo =
+    f32(y - hi))."""
+    y = _sum_plain(split, x)
+    hi = y.to(torch.float32)
+    return DsSplit(hi, (y - hi.to(torch.float64)).to(torch.float32))
+
+
+def ds_matvec_pair_batched(split: DsSplit, x: torch.Tensor) -> DsSplit:
+    """For float32 x (B, n): (hi, lo) float32 (B, m) with hi + lo =
+    (A_hi + A_lo) x per lane to
+    ~2^-48 relative (kernel K3; `ds_matvec_pair` under the JAX package's
+    vmap). The float32-state refinement residual r = (b - hi) - lo cancels
+    exactly, which a single float32 product would not.
+
+    CUDA tensors go to the CUDA kernel, CPU tensors to the plain version;
+    the operands as for `ds_matvec_batched`."""
+    global pair_launches
+    B, m, n = _check_batched(split, x)
+    if x.dtype != torch.float32:
+        raise TypeError(f"ds_matvec_pair_batched takes float32 x (the "
+                        f"float32-state regime), got {x.dtype}")
+    if _batched_device("ds_matvec_pair_batched", x) == "cpu":
+        return ds_matvec_pair_batched_plain(split, x)
+    hi = torch.empty(B, m, dtype=torch.float32, device=x.device)
+    lo = torch.empty_like(hi)
+    if _launch_batched("ds_matvec_pair_batched", split, x, hi, lo, B, m, n):
+        pair_launches += 1
+    return DsSplit(hi, lo)
+
+
+def _launch_batched(name: str, split: DsSplit, x: torch.Tensor,
+                    y: torch.Tensor, ylo, B: int, m: int, n: int) -> bool:
+    """Launch the kernel for a batch into y (and ylo, the pair's low
+    words). Returns whether it launched (nothing to do for an empty
+    batch)."""
     hi, lo = split
     if hi.stride() != lo.stride() or hi.stride(2) != 1 or x.stride(1) != 1:
-        raise ValueError("ds_matvec_batched's kernel takes hi and lo of "
-                         "equal strides with unit column stride, and x "
-                         "with unit stride along n")
+        raise ValueError(f"{name}'s kernel takes hi and lo of equal strides "
+                         f"with unit column stride, and x with unit stride "
+                         f"along n")
     if B > MAX_BATCH:
-        raise ValueError(f"ds_matvec_batched launches one grid slice per "
-                         f"problem, at most {MAX_BATCH}; got {B}")
-    y = torch.empty(B, m, dtype=torch.float64, device=x.device)
+        raise ValueError(f"{name} launches one grid slice per problem, at "
+                         f"most {MAX_BATCH}; got {B}")
     if m == 0 or B == 0:
-        return y
+        return False
     lib = _lib()
     lda, a_bs = hi.stride(1), hi.stride(0)
     x_bs = x.stride(0)
+    x_f32 = x.dtype == torch.float32
     # 16-byte loads need every problem's rows of hi/lo and its x to start
     # on 16-byte boundaries: the base pointers aligned, and the row and
-    # batch strides multiples of 4 floats (hi, lo) and 2 doubles (x)
+    # batch strides multiples of 4 floats (hi, lo, a float32 x) or 2
+    # doubles (a float64 x)
     ptrs = (hi.data_ptr(), lo.data_ptr(), x.data_ptr())
     vec = int(n % 4 == 0 and lda % 4 == 0 and a_bs % 4 == 0
-              and x_bs % 2 == 0 and all(p % 16 == 0 for p in ptrs))
+              and x_bs % (4 if x_f32 else 2) == 0
+              and all(p % 16 == 0 for p in ptrs))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.scs_ds_matvec(hi.data_ptr(), lo.data_ptr(), x.data_ptr(),
-                                y.data_ptr(), m, n, lda, B, a_bs, x_bs, m,
-                                vec, stream)
+                                y.data_ptr(),
+                                None if ylo is None else ylo.data_ptr(),
+                                m, n, lda, B, a_bs, x_bs, m, vec, int(x_f32),
+                                stream)
     if err != 0:
         msg = lib.scs_cuda_error_string(err).decode()
-        raise RuntimeError(f"ds_matvec_batched kernel launch failed: {msg} "
-                           f"({err})")
-    batched_launches += 1
-    return y
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    return True
+
+
+def ds_compose_gram_batched(ds_K: DsSplit, scale: torch.Tensor,
+                            diag: torch.Tensor,
+                            P=None) -> DsSplit:
+    """The (hi, lo) split of G[b] = scale[b] K[b] + diag(diag[b]) [+ P[b]]
+    from K's split, for the float32-state phase, whose view of the problem
+    holds no float64 K (`ds_compose_gram`, dsmatvec.py:497-514). The JAX
+    package composes the pair with error-free float32 arithmetic for want
+    of float64; here G is formed in float64 from the exact hi + lo and
+    split again, which is at least as accurate. A few elementwise passes
+    over (B, n, n), once per factor."""
+    K = ds_K.hi.to(torch.float64) + ds_K.lo.to(torch.float64)
+    G = (scale.to(torch.float64)[:, None, None] * K
+         + torch.diag_embed(diag.to(torch.float64)))
+    if P is not None:
+        G = G + P.to(torch.float64)
+    return split_operand(G)
 
 
 class DsOperator:

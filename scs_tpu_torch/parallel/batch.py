@@ -14,16 +14,22 @@ lockstep Python loop of `solver_batched`:
   * `BatchWorkspace` sets a batch up once and re-solves it after b/c
     updates, cold or warm.
 
-Mixed precision (the default on the card) solves in two phases as the
-JAX package does with `fast_f32=False`: a fast phase against targets
-floored at MIXED_FAST_FLOOR, a repair of the lanes whose true targets lie
-below the floor, and a polish phase on those lanes only. The state stays
-float64 in both phases; the float32-state fast phase (`fast_f32`) needs
-kernel K3 and is not ported (ROADMAP queue 1, item 9b).
+Mixed precision (the default on the card) solves in two phases, as the
+JAX package does: a fast phase against targets floored at
+MIXED_FAST_FLOOR, a repair of the lanes whose true targets lie below the
+floor, and a polish phase on those lanes only, with float64 state. The
+fast phase runs with float32 state (`Settings.fast_f32`, auto: on with
+mixed) on a float32 view of the problem: A, K, b, c and the state cast to
+float32, the double-single splits kept, so that its solves and checks
+stay float64-accurate through kernels K2 and K3. The state returns to
+float64 at the phase's end, and every lane's dual block is re-projected
+in float64 at the finish (`moreau_repolish_batched`).
 
 Every entry point solves on the card (`device="cuda"`) unless the caller
-passes `device="cpu"`, and raises without a card. `ds_split` forces the
-double-single operand splits on or off, as `api.Workspace`'s does.
+passes `device="cpu"`, and raises without a card. `ds_split=True` builds
+the double-single operand splits on the CPU, where the mixed path then
+runs the kernels' plain versions (a test's switch; on CUDA the splits are
+always built, and ds_split=False raises there).
 """
 
 from __future__ import annotations
@@ -41,13 +47,15 @@ from ..cones.project import require_supported
 from ..equilibrate import (equilibrate_batched, identity_scaling_batched,
                            normalize_b_c_batched, normalize_xys_batched,
                            unnormalize_xys_batched)
-from ..linsys import (get_backend, prepare_operands_batched,
-                      resolve_fast_f32, resolve_mixed)
+from ..linsys import (Mats, get_backend, prepare_operands_batched,
+                      resolve_ds_split, resolve_fast_f32, resolve_mixed)
+from ..linsys.direct import enter_f32_state, leave_f32_state
 from ..solver import ProblemData
 from ..solver_batched import (BatchedIteration, BatchedState, Rows,
-                              fresh_state, pack_warm_v_batched,
+                              fresh_state, moreau_repolish_batched,
+                              pack_warm_v_batched,
                               populate_residuals_batched, put_rows,
-                              set_diag_r_batched, take_rows)
+                              set_diag_r_batched, take_rows, tree_map)
 from ..types import ConeData, ConeSpec, Settings
 
 
@@ -75,7 +83,6 @@ def _check(spec: ConeSpec, stg: Settings) -> None:
     """Raise for what the batched solvers do not run (yet)."""
     get_backend(stg.linsys)
     _not_ported(stg)
-    resolve_fast_f32(stg)
     require_supported(spec)
 
 
@@ -88,6 +95,9 @@ def make_solver_parts(spec: ConeSpec, stg: Settings, *, device="cuda",
     chunk_fn(data, state, iter_cap) -> state: run until every lane has
         terminated or reached iter_cap.
     final_fn(data, state) -> SolveResult (branch-free per lane).
+
+    chunk_fn runs the float64-state iteration; `f32_view` and
+    `BatchedIteration(..., f32_state=True)` give the float32-state one.
     """
     return _parts(spec, stg, device, ds_split)[1:]
 
@@ -97,6 +107,7 @@ def _parts(spec: ConeSpec, stg: Settings, device, ds_split):
     dev = _resolve_device(device)
     _check(spec, stg)
     mixed = resolve_mixed(stg, dev)
+    ds = resolve_ds_split(ds_split, dev, mixed)
     it = BatchedIteration(spec, stg, mixed)
     backend = it.backend
     dtype = stg.dtype
@@ -128,7 +139,7 @@ def _parts(spec: ConeSpec, stg: Settings, device, ds_split):
             eps_abs=float(stg.eps_abs), eps_rel=float(stg.eps_rel),
             eps_infeas=float(stg.eps_infeas), alpha=float(stg.alpha),
             lin_cache=prepare_operands_batched(backend, A_n, P_n, spec.z,
-                                               mixed, ds_split))
+                                               mixed, ds))
         scale = torch.full((B,), float(stg.scale), dtype=dtype, device=dev)
         diag_r = set_diag_r_batched(spec, n, m, scale, stg.rho_x)
         derived = it.derive(data, diag_r, scale)
@@ -202,6 +213,31 @@ def _floored_data(data: ProblemData) -> ProblemData:
         data, eps_abs=max(data.eps_abs, config.MIXED_FAST_FLOOR),
         eps_rel=max(data.eps_rel, config.MIXED_FAST_FLOOR),
         eps_infeas=max(data.eps_infeas, config.MIXED_CERT_FLOOR))
+
+
+def f32_view(data: ProblemData, st: BatchedState):
+    """(data, state) of the float32-state phase: every float64 tensor cast
+    to float32 (the double-single splits, float32 already, kept as they
+    are), and the mixed factor given the split of G that the regime's
+    refinement reads (`linsys.direct.enter_f32_state`)."""
+    def demote(t):
+        return t.to(torch.float32) if t.dtype == torch.float64 else t
+
+    data32 = tree_map(demote, data)
+    st32 = tree_map(demote, dataclasses.replace(st, derived=None))
+    mats = Mats(data32.A, data32.P, data32.lin_cache)
+    derived = enter_f32_state(mats, st32.diag_r, tree_map(demote, st.derived))
+    return data32, dataclasses.replace(st32, derived=derived)
+
+
+def f64_state(st: BatchedState) -> BatchedState:
+    """The float32-state phase's state back in float64, its factor in the
+    float64-state regime's structure (`leave_f32_state`)."""
+    def promote(t):
+        return t.to(torch.float64) if t.dtype == torch.float32 else t
+
+    st64 = tree_map(promote, dataclasses.replace(st, derived=None))
+    return dataclasses.replace(st64, derived=leave_f32_state(st.derived))
 
 
 def _polish_settings(stg: Settings) -> Settings:
@@ -340,21 +376,27 @@ class _Machinery:
     def __init__(self, spec: ConeSpec, stg: Settings, device, ds_split,
                  compact: bool):
         self.spec, self.stg = spec, stg
-        # both phases run this iteration: the polish settings differ from
-        # the fast phase's only in cone settings that the ported cones do
-        # not read (`_polish_settings`)
+        # the float64-state phases run this iteration: the polish settings
+        # differ from the fast phase's only in cone settings that the
+        # ported cones do not read (`_polish_settings`)
         self.it, self.init_fn, _, self.final_fn = _parts(
             spec, stg, device, ds_split)
         self.mixed = self.it.mixed
         self.device = _resolve_device(device)
+        self.f32_state = resolve_fast_f32(
+            stg, self.mixed, resolve_ds_split(ds_split, self.device,
+                                              self.mixed))
+        self.it32 = (BatchedIteration(spec, stg, True, f32_state=True)
+                     if self.f32_state else None)
         self.compact = compact
         self.repair = (make_repair_fn(spec, stg, device=device)
                        if self.mixed else None)
         self.levels: list[tuple] = []
         self.polished = 0
 
-    def run_phase(self, phase: str, data, st: BatchedState, cap: int,
-                  entry_alive=None, deadline=None):
+    def run_phase(self, phase: str, it: BatchedIteration, data,
+                  st: BatchedState, cap: int, entry_alive=None,
+                  deadline=None):
         """Level dispatch with straggler compaction. Returns (state,
         needs_full, stop): needs_full a host (B,) bool of lanes whose
         fast-phase status needs the polish phase; stop None, "timeout" or
@@ -363,7 +405,7 @@ class _Machinery:
         entry_alive: host (B,) bool of the lanes active at phase entry
         (the polish phase: the lanes that need it), gathered into their
         own bucket before the first step."""
-        it, stg = self.it, self.stg
+        stg = self.stg
         budget = 8 * max(stg.chunk_iters, config.CONVERGED_INTERVAL)
         B = st.status.shape[0]
         min_bucket = max(B // 8, 1) if self.compact else B
@@ -458,33 +500,47 @@ class _Machinery:
         self.polished = 0
         if not self.mixed:
             try:
-                st, _, stop = self.run_phase("solve", data, st, cap,
+                st, _, stop = self.run_phase("solve", self.it, data, st, cap,
                                              deadline=deadline)
             except KeyboardInterrupt:
                 stop = "sigint"
             if stop:
                 st = self.resolve_stop(st, stop)
             return self.final_fn(data, st), st
-        fst = st
+        if self.f32_state:
+            fdata, fst = f32_view(_floored_data(data), st)
+        else:
+            fdata, fst = _floored_data(data), st
         try:
-            st, needs, stop = self.run_phase("fast", _floored_data(data), st,
-                                             cap, deadline=deadline)
+            st, needs, stop = self.run_phase(
+                "fast", self.it32 or self.it, fdata, fst, cap,
+                deadline=deadline)
         except KeyboardInterrupt:
             st, stop = fst, "sigint"
+        if self.f32_state:
+            st = f64_state(st)
         if stop:
             st = self.resolve_stop(st, stop)
-            return self.final_fn(data, st), st
+            return self.finalize(data, st)
         if needs.any():
             self.polished = int(needs.sum())
             st = self.repair(data, st)
             try:
                 st, _, stop = self.run_phase(
-                    "polish", data, st, cap,
+                    "polish", self.it, data, st, cap,
                     entry_alive=torch.as_tensor(needs), deadline=deadline)
             except KeyboardInterrupt:
                 stop = "sigint"
             if stop == "sigint":
                 st = self.resolve_stop(st, stop)
+        return self.finalize(data, st)
+
+    def finalize(self, data, st: BatchedState):
+        """(SolveResult, state) of a mixed solve; after a float32-state
+        phase every lane's dual block is re-projected in float64 first
+        (the JAX chunked solver's `_finalize`)."""
+        if self.f32_state:
+            st = moreau_repolish_batched(data, self.spec, st)
         return self.final_fn(data, st), st
 
 

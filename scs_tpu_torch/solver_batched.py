@@ -22,6 +22,13 @@ loop reads the device once per check step: every lane's new status and
 its adaptive-scale wish, in one transfer. A lane whose scale changes is
 re-factored alone (gather, derive, scatter).
 
+With float32 state (the `fast_f32` phase of the batched solvers,
+`BatchedIteration(f32_state=True)`) the same iteration runs on float32
+tensors, its steering reductions (root_plus's dots, the iterate norm, the
+objective dots of the check) in the accurate form of `ops.dsreduce`, and
+its linear solve in the float32-state regime of `linsys.direct`. The flag
+is explicit: the pure float32 mode keeps plain reductions.
+
 The JAX loop is a compiled `while_loop` whose body is either one unrolled
 macro of lcm(acceleration_interval, 25) steps or a per-step conditional
 (`Settings.macro_schedule`); both give the same trajectory. This loop is
@@ -43,7 +50,7 @@ from . import accel, config
 from .cones.project import proj_dual_cone_batched
 from .linsys import Mats, get_backend
 from .linsys.direct import bmv
-from .ops import dsmatvec
+from .ops import dsmatvec, dsreduce
 from .solver import ProblemData, Residuals, _safediv_pos
 from .types import ConeSpec, Settings
 
@@ -137,7 +144,7 @@ def mask_lanes(new, old, act: torch.Tensor, act_dev: torch.Tensor):
 
 # ---- batched counterparts of the one-problem helpers ----
 
-def _dot(x, y):
+def _plain_dot(x, y):
     return torch.sum(x * y, dim=-1)
 
 
@@ -171,8 +178,10 @@ def pack_warm_v_batched(x, y, s, diag_r, scrub_nan: bool = False):
     return torch.cat([x, vy, one], dim=1)
 
 
-def root_plus_batched(g, p, mu, eta, diag_r, nm: int):
-    """`root_plus` per lane: g, p (B, nm), mu (B, >= nm), eta (B,)."""
+def root_plus_batched(g, p, mu, eta, diag_r, nm: int, acc: bool = False):
+    """`root_plus` per lane: g, p (B, nm), mu (B, >= nm), eta (B,). acc:
+    the accurate float32 dots of the float32-state phase."""
+    _dot = dsreduce.acc_dot if acc else _plain_dot
     r = diag_r[:, :nm]
     gs = g * r
     gg = _dot(gs, g)
@@ -206,12 +215,14 @@ def _res_matvec(data: ProblemData, x, transpose: bool):
 
 
 def populate_residuals_batched(data: ProblemData, spec: ConeSpec, u, rsk,
-                               it: torch.Tensor,
-                               use_ds: bool = False) -> Residuals:
+                               it: torch.Tensor, use_ds: bool = False,
+                               acc: bool = False) -> Residuals:
     """`populate_residuals` per lane: every field of the result is (B,);
     last_iter is the host tensor `it`. use_ds routes A x and A' y through
     the batched double-single kernel (K2), reading x and y where they lie
-    in u."""
+    in u; acc takes the accurate float32 dots of the float32-state
+    phase."""
+    _dot = dsreduce.acc_dot if acc else _plain_dot
     m, n = data.A.shape[1:]
     x = u[:, :n]
     y = u[:, n:n + m]
@@ -303,6 +314,25 @@ def has_converged_batched(r: Residuals, data: ProblemData) -> torch.Tensor:
                                 config.UNFINISHED)))
 
 
+def moreau_repolish_batched(data: ProblemData, spec: ConeSpec,
+                            st: "BatchedState") -> "BatchedState":
+    """One Moreau re-projection of the dual block of every lane, in the
+    state's dtype (the JAX `make_moreau_repolish`, solver.py:750-781): the
+    last projection's argument w = u_y - rsk_y / R_y is projected again
+    and both halves of the split are rewritten, so that a lane that ended
+    in the float32-state phase returns s in K, y in K* and s'y = 0 to
+    float64 round-off. Idempotent up to round-off for a lane whose last
+    projection was float64 already."""
+    m, n = data.A.shape[1:]
+    r_y = st.diag_r[:, n:n + m]
+    w = st.u[:, n:n + m] - st.rsk[:, n:n + m] / r_y
+    y = proj_dual_cone_batched(w, spec, r_y)
+    u, rsk = st.u.clone(), st.rsk.clone()
+    u[:, n:n + m] = y
+    rsk[:, n:n + m] = (y - w) * r_y
+    return dataclasses.replace(st, u=u, rsk=rsk)
+
+
 def residuals_zeros_batched(B: int, dtype, device) -> Residuals:
     z = torch.zeros(B, dtype=dtype, device=device)
     vals = {f.name: z for f in dataclasses.fields(Residuals)}
@@ -334,12 +364,15 @@ def fresh_state(v, diag_r, g, derived, scale, mem: int) -> BatchedState:
 class BatchedIteration:
     """The ADMM iteration of B lanes for one cone layout and one set of
     settings: `substep` runs one lockstep step, `run` a level of steps
-    (the JAX `make_batched_loop`)."""
+    (the JAX `make_batched_loop`). f32_state: the iteration of the
+    float32-state phase (accurate reductions; see the module docstring)."""
 
-    def __init__(self, spec: ConeSpec, stg: Settings, mixed: bool):
+    def __init__(self, spec: ConeSpec, stg: Settings, mixed: bool,
+                 f32_state: bool = False):
         self.spec = spec
         self.stg = stg
         self.mixed = mixed
+        self.f32_state = f32_state
         self.backend = get_backend(stg.linsys)
         self.use_aa = stg.acceleration_lookback > 0
         self.mem = max(stg.acceleration_lookback, 1)
@@ -442,7 +475,8 @@ class BatchedIteration:
 
         # 2. normalize v to L2 norm sqrt(l) (homogeneity; scs.c:813-821)
         v = st.v
-        nrm = torch.linalg.vector_norm(v, dim=1)
+        nrm = (dsreduce.acc_norm(v) if self.f32_state
+               else torch.linalg.vector_norm(v, dim=1))
         scaled = v * (math.sqrt(l) * config.ITERATE_NORM
                       / torch.where(nrm > 0, nrm, 1.0))[:, None]
         renorm = nrm > 0.0
@@ -456,7 +490,8 @@ class BatchedIteration:
                          -v[:, n:l - 1] * dr[:, n:l - 1]], dim=1)
         sol, its = self.backend.solve_batched(self.mats(data), dr,
                                               st.derived, rhs)
-        tau = root_plus_batched(st.g, sol, v, v[:, l - 1], dr, l - 1)
+        tau = root_plus_batched(st.g, sol, v, v[:, l - 1], dr, l - 1,
+                                acc=self.f32_state)
         if pin_dev is not None:
             tau = torch.where(pin_dev, 1.0, tau)
         u_t = torch.cat([sol - tau[:, None] * st.g, tau[:, None]], dim=1)
@@ -480,7 +515,8 @@ class BatchedIteration:
         if check:
             # 7. residuals + convergence check, and the scale update
             res = populate_residuals_batched(data, spec, u, rsk, st.iter,
-                                             use_ds=self.mixed)
+                                             use_ds=self.mixed,
+                                             acc=self.f32_state)
             flags = [has_converged_batched(res, data)]
             if stg.adaptive_scale:
                 new_scale, sum_log, n_log, wanted = self._scale_proposal(

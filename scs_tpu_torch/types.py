@@ -155,8 +155,9 @@ class Settings:
     # cones only
     cone_f32: Optional[bool] = None
     exp_f32: Optional[bool] = None
-    # f32-state fast phase of the batched solvers: not ported yet, True
-    # raises and None resolves to off (linsys.resolve_fast_f32)
+    # f32-state fast phase of the batched solvers (None = follow the
+    # resolved mixed flag where the ds splits exist;
+    # linsys.resolve_fast_f32)
     fast_f32: Optional[bool] = None
     # batched-loop body selection of the JAX package (None = auto); no
     # effect here, where the batched loop is Python (solver_batched)

@@ -220,7 +220,7 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(linsys="direct", fast_f32=True), "item 9b"),
+    (dict(linsys="direct", verbose=True), "item 14"),
     (dict(linsys="indirect"), "item 10"),
     (dict(linsys="direct", psd_rank=2), "item 13"),
 ])

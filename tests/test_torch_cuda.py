@@ -13,7 +13,8 @@ import torch
 from scs_tpu_torch import ConeSpec, Settings, Workspace
 from scs_tpu_torch.models import gen_planted
 from scs_tpu_torch.ops import dsmatvec
-from scs_tpu_torch.parallel import make_batch_solver
+from scs_tpu_torch.parallel import (make_batch_solver,
+                                    make_chunked_batch_solver)
 
 pytestmark = pytest.mark.cuda
 
@@ -124,23 +125,59 @@ def test_ds_matvec_batched_kernel_takes_strided_and_unaligned_x(cuda):
                                                     device=cuda))
 
 
-def test_mixed_batch_on_the_card_matches_the_plain_version(cuda):
-    """The mixed batched solve through K2 against the same solve on the
-    CPU through its plain version: the same statuses, objectives within
-    1e-4 (1 + |pobj|), iteration counts within [0.8, 1.25]."""
+@pytest.mark.parametrize("shape", [(1024, 100, 100), (3, 37, 101),
+                                   (5, 64, 96)])
+def test_ds_matvec_pair_kernel_matches_plain(cuda, shape):
+    """K3 (float32 x, the float32 pair out) against its plain version: the
+    pair's sums agree to 1e-12 of max |A| |x| per lane, also for x a
+    column slice of a wider iterate (the scalar loads)."""
+    B, m, n = shape
+    rng = np.random.RandomState(B + m + n)
+    A = torch.tensor(rng.randn(B, m, n), device=cuda)
+    u = torch.tensor(rng.randn(B, n + 3) * 22.0, device=cuda,
+                     dtype=torch.float32)
+    split = dsmatvec.split_operand(A)
+    for x in (u[:, :n].contiguous(), u[:, 3:]):
+        before = dsmatvec.pair_launches
+        hi, lo = dsmatvec.ds_matvec_pair_batched(split, x)
+        torch.cuda.synchronize()
+        assert dsmatvec.pair_launches == before + 1
+        rh, rl = dsmatvec.ds_matvec_pair_batched_plain(split, x)
+        got = hi.double() + lo.double()
+        ref = rh.double() + rl.double()
+        bound = 1e-12 * torch.matmul(A.abs(), x.double().abs().unsqueeze(-1)
+                                     ).amax(1)
+        assert bool(((got - ref).abs().amax(1, keepdim=True) <= bound).all())
+        # and K2 with the same float32 x returns the sum rounded once
+        y = dsmatvec.ds_matvec_batched(split, x)
+        assert y.dtype == torch.float32
+        assert bool(((y.double() - ref).abs()
+                     <= 2.0 ** -23 * ref.abs() + bound).all())
+
+
+def _small_batch(count=6):
     spec = ConeSpec(z=5, l=20, q=(5, 5, 5, 10))
     probs = [gen_planted(spec, n=30, seed=3 + i, density=0.3)
-             for i in range(6)]
+             for i in range(count)]
     A, b, c = (torch.stack([getattr(p.problem, k) for p in probs])
                for k in ("A", "b", "c"))
-    bnd = torch.zeros(6, 0, dtype=torch.float64)
+    bnd = torch.zeros(count, 0, dtype=torch.float64)
+    return spec, A, b, c, bnd, np.asarray([p.opt for p in probs])
+
+
+def test_mixed_batch_on_the_card_matches_the_plain_version(cuda):
+    """The mixed batched solve with float64 state through K2 against the
+    same solve on the CPU through its plain version: the same statuses,
+    objectives within 1e-4 (1 + |pobj|), iteration counts within
+    [0.8, 1.25]."""
+    spec, A, b, c, bnd, _ = _small_batch()
+    stg = Settings(linsys="direct", mixed_precision=True, fast_f32=False)
     dsmatvec.batched_launches = 0
-    res = make_batch_solver(spec, Settings(linsys="direct"))(
+    res = make_batch_solver(spec, stg)(
         A.to(cuda), b.to(cuda), c.to(cuda), bnd.to(cuda), bnd.to(cuda))
     launches = dsmatvec.batched_launches
-    ref = make_batch_solver(spec, Settings(linsys="direct",
-                                           mixed_precision=True),
-                            device="cpu", ds_split=True)(A, b, c, bnd, bnd)
+    ref = make_batch_solver(spec, stg, device="cpu", ds_split=True)(
+        A, b, c, bnd, bnd)
     assert torch.equal(res.status.cpu(), ref.status)
     assert bool((ref.status == 1).all())
     assert launches >= 4 * int(res.iters.max())
@@ -148,3 +185,48 @@ def test_mixed_batch_on_the_card_matches_the_plain_version(cuda):
                  <= 1e-4 * (1 + ref.pobj.abs())).all())
     ratio = res.iters.cpu().double() / ref.iters.double()
     assert bool(((0.8 <= ratio) & (ratio <= 1.25)).all())
+
+
+def test_f32_state_batch_on_the_card_matches_the_plain_version(cuda):
+    """The default mixed batched solve on the card (its fast phase with
+    float32 state, through K2 and K3) against the same solve on the CPU
+    through their plain versions: the same statuses, objectives within
+    1e-3 of the planted optimum, iteration counts within [0.5, 2] (float32
+    state rounds differently on the two devices, and the JAX package's
+    own test of the phase allows 2x)."""
+    spec, A, b, c, bnd, opts = _small_batch()
+    dsmatvec.batched_launches = 0
+    dsmatvec.pair_launches = 0
+    res = make_batch_solver(spec, Settings(linsys="direct"))(
+        A.to(cuda), b.to(cuda), c.to(cuda), bnd.to(cuda), bnd.to(cuda))
+    launches, pair = dsmatvec.batched_launches, dsmatvec.pair_launches
+    ref = make_batch_solver(spec, Settings(linsys="direct",
+                                           mixed_precision=True),
+                            device="cpu", ds_split=True)(A, b, c, bnd, bnd)
+    assert torch.equal(res.status.cpu(), ref.status)
+    assert bool((ref.status == 1).all())
+    assert launches >= 2 * int(res.iters.max())
+    assert pair >= 2 * int(res.iters.max())
+    err = (res.pobj.cpu().numpy() - opts) / (1 + np.abs(opts))
+    assert np.all(np.abs(err) <= 1e-3)
+    ratio = res.iters.cpu().double() / ref.iters.double()
+    assert bool(((0.5 <= ratio) & (ratio <= 2.0)).all())
+
+
+def test_f32_state_below_the_floor_polishes_on_the_card(cuda):
+    """Targets below the fast floor on the card: the state returns to
+    float64 at the phase's end, every lane is repaired and polished
+    through K2, and reaches the tight eps."""
+    spec, A, b, c, bnd, opts = _small_batch()
+    eps = 1e-7
+    solver = make_chunked_batch_solver(
+        spec, Settings(linsys="direct", eps_abs=eps, eps_rel=eps,
+                       chunk_iters=100))
+    res = solver(A.to(cuda), b.to(cuda), c.to(cuda), bnd.to(cuda),
+                 bnd.to(cuda))
+    assert solver.machinery.f32_state
+    assert solver.machinery.polished == A.shape[0]
+    assert bool((res.status == 1).all())
+    assert float(res.res_pri.max()) < 10 * eps
+    err = (res.pobj.cpu().numpy() - opts) / (1 + np.abs(opts))
+    assert np.all(np.abs(err) <= 1e-5)

@@ -317,6 +317,7 @@ _FORBIDDEN = re.compile(
 def test_port_imports_neither_jax_nor_scs_tpu():
     files = sorted((REPO / "scs_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files.append(REPO / "tools" / "torch_f32_state_iterations.py")
     assert len(files) > 10
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
