@@ -19,19 +19,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      default there, its fast phase with float32 state) with the launch
      counts of kernels K2 and K3 read around the solve; then the same
      batch mixed with float64 state (fast_f32=False) and in pure float64;
-  6. BatchWorkspace at B=256: a cold solve, b shifted by 1 %, a warm
-     solve; then its first 64 lanes mixed (float64 state) at eps 1e-7,
-     below the fast phase's floor, so that every lane goes through the
-     polish phase;
-  7. a profile of 100 iterations of the large SOCP, mixed and pure, and
-     of 50 batched steps of the headline batch's float32-state phase
-     (launches, device busy share, the kernels that take the most device
-     time, the operators that take the most host time), and the batched
-     Anderson QR against torch.linalg.qr.
+  6. BatchWorkspace at B=64 in its default mode (mixed, float32 state;
+     the 64 lanes whose phase-5 solve was shortest): a cold solve, b
+     shifted by 1 %, a warm solve; then the first 64 lanes at eps 1e-7,
+     mixed with float64 state, below the fast phase's floor, so that
+     every lane goes through the polish phase;
+  7. the indirect backend (the default `Settings.linsys`): the large SOCP
+     mixed (the card's default) and pure float64, with its CG iterations
+     and host reads, against the planted optimum and the direct solve;
+     then the headline batch at B=1024 in the default mode (mixed,
+     float32 state) and mixed with float64 state, every lane held to
+     SCS's termination test;
+  8. the roofline probe `roofline.measure(n=4096, iters=400, reps=3)`,
+     the path of kernel K5, and K4's entry point `ds_matmul`;
+  9. a profile of 100 iterations of the large SOCP, mixed and pure, and
+     mixed through the indirect backend, and of 50 batched steps of the
+     headline batch's float32-state phase (launches, device busy share,
+     the kernels that take the most device time, the operators that take
+     the most host time), and the batched Anderson QR against
+     torch.linalg.qr.
 Phase 2 also holds K2 and K3 against their plain versions at the batched
-shapes.
-The second-to-last line is a JSON object with one entry per kernel, the
-last line {"ok": true, "device": {...}}.
+shapes, and K4 and K5 against theirs.
+Phases 3-6 run the direct backend (`Settings(linsys="direct")`).
+The second-to-last line is a JSON object with one entry per kernel (K1-K5),
+the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -46,8 +57,9 @@ import torch
 
 from scs_tpu_torch import Settings, Workspace, accel
 from scs_tpu_torch.demo_socp import make_spec
+from scs_tpu_torch.linsys import direct, indirect
 from scs_tpu_torch.models import gen_planted
-from scs_tpu_torch.ops import _build, dsmatvec
+from scs_tpu_torch.ops import _build, dsmatmul, dsmatvec, roofline
 from scs_tpu_torch.parallel import (BatchWorkspace,
                                     make_chunked_batch_solver,
                                     make_solver_parts)
@@ -55,10 +67,13 @@ from scs_tpu_torch.parallel import batch as batch_mod
 from scs_tpu_torch.solver_batched import BatchedIteration
 from scs_tpu_torch.types import ConeSpec
 
-# H100 SXM, NVIDIA's data sheet: HBM3 bandwidth and float64 (non-tensor)
-# peak, both at the full 700 W power limit
+# H100 SXM, NVIDIA's data sheet: HBM3 bandwidth, float64 peak outside
+# and inside the tensor cores, float32 peak outside them, all at the full
+# 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+FP64_TENSOR_FLOPS = 67e12
+FP32_FLOPS = 67e12
 REPS = 30
 
 
@@ -193,6 +208,86 @@ def ds_matvec_batched_case(B: int, m: int, n: int, seed: int,
     }
 
 
+def ds_matmul_case(ashape, bshape, seed: int) -> dict:
+    """K4 against its plain version at one pair of shapes, held to 1e-13
+    max(|A| |B|) (both sum the same exact float64 products in another
+    order); times of the kernel, the plain version and torch.matmul on
+    the float64 stack (the yardstick, timed only here)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.randn(*ashape, generator=gen, dtype=torch.float64,
+                    device="cuda")
+    B = torch.randn(*bshape, generator=gen, dtype=torch.float64,
+                    device="cuda")
+    a, b = dsmatvec.split_operand(A), dsmatvec.split_operand(B)
+    A64 = a.hi.double() + a.lo.double()
+    B64 = b.hi.double() + b.lo.double()
+    C = dsmatmul.ds_matmul_pairs(a, b)
+    torch.cuda.synchronize()
+    ref = dsmatmul.ds_matmul_plain(a, b)
+    err = float((C - ref).abs().max())
+    tol = 1e-13 * float(torch.matmul(A64.abs(), B64.abs()).max())
+    check(math.isfinite(err) and err <= tol,
+          f"ds_matmul {ashape}x{bshape}: max|kernel - plain| = {err:.3e} "
+          f"> {tol:.3e}")
+    nb, m, k = ashape
+    n = bshape[2]
+    nbytes = 8 * nb * (m * k + k * n) + 8 * nb * m * n
+    flops = 2 * nb * m * n * k
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / FP64_TENSOR_FLOPS
+    return {
+        "shape": [list(ashape), list(bshape)], "max_abs_err": err,
+        "tol": tol,
+        "ms": median_ms(lambda: dsmatmul.ds_matmul_pairs(a, b)),
+        "plain_ms": median_ms(lambda: dsmatmul.ds_matmul_plain(a, b)),
+        "library_ms": median_ms(lambda: torch.matmul(A64, B64)),
+        "bound_ms": max(by_bytes, by_ops) * 1e3,
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+    }
+
+
+def read_rowsum_case(m: int, n: int, seed: int, split: bool) -> dict:
+    """K5 against its plain version at one (m, n), each row held to
+    4 ceil(log2 n) 2^-24 sum |a + b| (float32 sums in two orders; the
+    kernel adds at most 39 terms in sequence at these shapes); times of
+    the kernel, the plain version and a.sum(1) + b.sum(1) (no single
+    PyTorch call computes this function: that pair of calls reads the
+    same bytes and stands beside it, not as its yardstick). split: a and
+    b are the (hi, lo) split of a float64 matrix, the probe's input;
+    else b is of a's magnitude, where a kernel that dropped b or read a
+    twice would miss the limit by orders of magnitude."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if split:
+        a, b = dsmatvec.split_operand(torch.randn(
+            m, n, generator=gen, dtype=torch.float64, device="cuda"))
+    else:
+        a = torch.randn(m, n, generator=gen, device="cuda")
+        b = torch.randn(m, n, generator=gen, device="cuda")
+    o = roofline.read_rowsum(a, b)
+    torch.cuda.synchronize()
+    ref = roofline.read_rowsum_plain(a, b)
+    err_row = (o - ref).abs()
+    tol_row = (4 * math.ceil(math.log2(n)) * 2.0 ** -24
+               * (a + b).abs().sum(1, keepdim=True))
+    check(bool(torch.isfinite(err_row).all())
+          and bool((err_row <= tol_row).all()),
+          f"read_rowsum {m}x{n} ({'split' if split else 'b like a'}): "
+          f"max|kernel - plain| = {float(err_row.max()):.3e} above its "
+          f"limit in some row")
+    nbytes = 2 * 4 * m * n + 4 * m
+    flops = 2 * m * n
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {
+        "shape": [m, n], "split": split, "max_abs_err": float(err_row.max()),
+        "tol": float(tol_row.min()),
+        "ms": median_ms(lambda: roofline.read_rowsum(a, b)),
+        "plain_ms": median_ms(lambda: roofline.read_rowsum_plain(a, b)),
+        "two_sums_ms": median_ms(lambda: a.sum(1) + b.sum(1)),
+        "library_ms": None,
+        "bound_ms": max(by_bytes, by_ops) * 1e3,
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+    }
+
+
 def headline_batch(spec, B: int, seed0: int):
     """B planted problems of the headline family, stacked on the card."""
     probs = [gen_planted(spec, n=100, seed=seed0 + i, density=0.1)
@@ -243,6 +338,8 @@ def solve_batch(spec, batch, stg, label, tol=1e-3):
     dsmatvec.launches = 0
     dsmatvec.batched_launches = 0
     dsmatvec.pair_launches = 0
+    indirect.host_reads = 0
+    indirect.refine_passes = 0
     t0 = time.perf_counter()
     res = solver(A, b, c, bnd, bnd)
     status = res.status.cpu().numpy()
@@ -259,6 +356,13 @@ def solve_batch(spec, batch, stg, label, tol=1e-3):
     err = np.abs(pobj - opts) / (1 + np.abs(opts))
     levels = [(ph, bk, al, n, round(sec, 3))
               for ph, bk, al, n, sec in solver.levels]
+    cg = int(res.tot_cg_its.sum())
+    cg_note = (f", CG iterations {cg} ({cg / max(int(iters.sum()), 1):.1f} "
+               f"per lane-iteration), CG host reads {indirect.host_reads} "
+               f"({indirect.host_reads / max(steps, 1):.1f} per step), "
+               f"refinement passes {indirect.refine_passes} "
+               f"({indirect.refine_passes / max(steps, 1):.2f} per step)"
+               if stg.linsys == "indirect" else "")
     print(f"{label}: B={B}, wall {wall:.3f} s, {int(iters.sum())} "
           f"lane-iterations ({iters.min()}-{iters.max()} per lane, median "
           f"{int(np.median(iters))}), {iters.sum() / wall:.0f} "
@@ -269,7 +373,7 @@ def solve_batch(spec, batch, stg, label, tol=1e-3):
           f"{solver.machinery.f32_state}, K2 launches {launches}, K3 "
           f"launches {pair}, max pobj rel err {err.max():.2e}, max res_pri "
           f"{float(res.res_pri.max()):.2e}, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{cg_note}")
     check(bool(np.all(status == 1)),
           f"{label}: statuses {np.unique(status, return_counts=True)}")
     check(bool(np.all(err <= tol)), f"{label}: objective error "
@@ -279,15 +383,22 @@ def solve_batch(spec, batch, stg, label, tol=1e-3):
     return {"status": status, "pobj": pobj, "iters": iters, "wall": wall,
             "steps": steps, "launches": launches, "pair": pair,
             "by_phase": by_phase, "polished": solver.machinery.polished,
-            "f32_state": solver.machinery.f32_state}
+            "f32_state": solver.machinery.f32_state,
+            "cg": int(res.tot_cg_its.sum())}
 
 
 def warm_batch(spec, batch):
-    """BatchWorkspace on the card: cold solve, b shifted by 1 %, warm
-    solve (the examples/mpc_warm_batch.py pattern)."""
+    """BatchWorkspace on the card in its default mode (mixed, fast phase
+    with float32 state): cold solve, b shifted by 1 %, warm solve (the
+    examples/mpc_warm_batch.py pattern), the K3 launches of the
+    float32-state phase counted around the two solves."""
     A, b, c, _ = batch
     ws = BatchWorkspace(spec, Settings(linsys="direct", chunk_iters=250),
                         A, None, b, c)
+    check(ws.machinery.f32_state, "BatchWorkspace: the default mixed solve "
+          "on the card does not run float32 state")
+    torch.cuda.synchronize()
+    dsmatvec.pair_launches = 0
     t0 = time.perf_counter()
     cold = ws.solve()
     cold_it = cold.iters.cpu().numpy()
@@ -296,14 +407,17 @@ def warm_batch(spec, batch):
     warm = ws.solve(warm_start=True)
     warm_it = warm.iters.cpu().numpy()
     t2 = time.perf_counter()
-    print(f"BatchWorkspace B={A.shape[0]}: cold {int(cold_it.sum())} "
-          f"lane-iterations (max {cold_it.max()}) in {t1 - t0:.3f} s, "
-          f"warm after b *= 1.01 {int(warm_it.sum())} lane-iterations "
-          f"(max {warm_it.max()}) in {t2 - t1:.3f} s, warm levels "
+    pair = dsmatvec.pair_launches
+    print(f"BatchWorkspace B={A.shape[0]}, float32 state: cold "
+          f"{int(cold_it.sum())} lane-iterations (max {cold_it.max()}) in "
+          f"{t1 - t0:.3f} s, warm after b *= 1.01 {int(warm_it.sum())} "
+          f"lane-iterations (max {warm_it.max()}) in {t2 - t1:.3f} s, K3 "
+          f"launches {pair}, warm levels "
           f"{[(ph, bk, al, n, round(sec, 3)) for ph, bk, al, n, sec in ws.levels]}")
     for label, r in (("cold", cold), ("warm", warm)):
         check(bool((r.status == 1).all()),
               f"BatchWorkspace {label}: not every lane solved")
+    check(pair > 0, "BatchWorkspace: no K3 launch, so no float32-state step")
     check(warm_it.sum() < cold_it.sum(),
           f"BatchWorkspace: warm {warm_it.sum()} lane-iterations not below "
           f"cold {cold_it.sum()}")
@@ -347,21 +461,77 @@ def solve_planted(p, spec, label):
     agree = abs(info.pobj - info64.pobj) / (1 + abs(info64.pobj))
     check(agree <= 1e-3, f"{label}: mixed vs pure pobj differ by {agree:.2e}")
     return {"iter": info.iter, "setup_ms": info.setup_time,
-            "solve_ms": info.solve_time, "launches": launches}
+            "solve_ms": info.solve_time, "launches": launches,
+            "pobj64": info64.pobj}
 
 
-def warm_workspace(p, spec, mixed: bool, iters: int):
+def solve_indirect(p, spec, label, direct_pobj: float):
+    """The planted problem through the indirect backend on the card, mixed
+    (the default there) and pure float64, each with its counts set to 0
+    just before: status, ADMM and CG iterations, ms per iteration, K1
+    launches and the CG loops' host reads, and the objective against the
+    planted optimum and the direct solve. The direct runs' gates."""
+    out = {}
+    for mode, stg in (("mixed", Settings()),
+                      ("pure f64", Settings(mixed_precision=False))):
+        torch.cuda.synchronize()
+        dsmatvec.launches = 0
+        indirect.host_reads = 0
+        indirect.refine_passes = 0
+        ws = Workspace(p.problem, spec, p.cone_data, stg)
+        sol, info = ws.solve()
+        torch.cuda.synchronize()
+        launches, reads = dsmatvec.launches, indirect.host_reads
+        passes = indirect.refine_passes
+        it = max(info.iter, 1)
+        err = abs(info.pobj - p.opt) / (1 + abs(p.opt))
+        agree = abs(info.pobj - direct_pobj) / (1 + abs(direct_pobj))
+        print(f"{label} indirect {mode}: {info.status}, {info.iter} "
+              f"iterations, {ws.tot_cg_its} CG iterations "
+              f"({ws.tot_cg_its / it:.1f} per iteration), setup "
+              f"{info.setup_time:.1f} ms, solve {info.solve_time:.1f} ms, "
+              f"{info.solve_time / it:.3f} ms/iteration, ds_matvec launches "
+              f"{launches} ({launches / it:.2f} per iteration), CG host reads "
+              f"{reads} ({reads / it:.2f} per iteration), refinement passes "
+              f"{passes} ({passes / it:.2f} per iteration), pobj "
+              f"{info.pobj!r} (planted {p.opt!r}, rel err {err:.2e}; direct "
+              f"{direct_pobj!r}, rel diff {agree:.2e})")
+        check(info.lin_sys_solver == indirect.METHOD_NAME,
+              f"{label} indirect {mode}: solved by {info.lin_sys_solver}")
+        check(info.status == "solved",
+              f"{label} indirect {mode}: status {info.status}")
+        check(err <= 1e-3, f"{label} indirect {mode}: objective error "
+              f"{err:.2e}")
+        check(agree <= 1e-3, f"{label} indirect {mode}: objective differs "
+              f"from the direct solve's by {agree:.2e}")
+        check(np.all(np.isfinite(sol.x)), f"{label} indirect {mode}: x not "
+              f"finite")
+        out[mode] = {"iter": info.iter, "cg": ws.tot_cg_its,
+                     "solve_ms": info.solve_time, "launches": launches,
+                     "reads": reads, "mixed": ws._mixed}
+    check(out["mixed"]["mixed"] and out["mixed"]["launches"] >= 2 *
+          out["mixed"]["iter"], f"{label} indirect: the default solve on the "
+          f"card is not mixed or launched K1 {out['mixed']['launches']} "
+          f"times in {out['mixed']['iter']} iterations")
+    check(out["pure f64"]["launches"] == 0,
+          f"{label} indirect pure f64 launched K1")
+    return out
+
+
+def warm_workspace(p, spec, mixed: bool, iters: int,
+                   linsys: str = "direct"):
     """A workspace capped at `iters` iterations, solved once, with the
     ms per iteration of that solve (allocator, library handles and kernel
     modules were set up by the solves before it)."""
-    stg = Settings(linsys="direct", mixed_precision=mixed, max_iters=iters)
+    stg = Settings(linsys=linsys, mixed_precision=mixed, max_iters=iters)
     ws = Workspace(p.problem, spec, p.cone_data, stg)
     _, info = ws.solve()
     torch.cuda.synchronize()
     return ws, info.solve_time / max(info.iter, 1)
 
 
-def profile_iterations(p, spec, mixed: bool, iters: int, label: str) -> None:
+def profile_iterations(p, spec, mixed: bool, iters: int, label: str,
+                       linsys: str = "direct") -> None:
     """Where the time of `iters` iterations goes: host wall time per
     iteration, device busy time per iteration (kernels and copies seen by
     torch.profiler), CUDA launches per iteration, and the kernels that
@@ -370,7 +540,7 @@ def profile_iterations(p, spec, mixed: bool, iters: int, label: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ws, _ = warm_workspace(p, spec, mixed, iters)
+    ws, _ = warm_workspace(p, spec, mixed, iters, linsys)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -416,7 +586,8 @@ def profile_batched(spec, batch, steps: int) -> None:
     stg = Settings(linsys="direct")
     init_fn, _, _ = make_solver_parts(spec, stg)
     data, st = init_fn(A, None, b, c)
-    fdata, st0 = batch_mod.f32_view(batch_mod._floored_data(data), st)
+    fdata, st0 = batch_mod.f32_view(batch_mod._floored_data(data), st,
+                                    direct)
     it32 = BatchedIteration(spec, stg, True, f32_state=True)
     it32.run(fdata, st0, steps)
     torch.cuda.synchronize()
@@ -558,6 +729,28 @@ def main() -> int:
             fn()
         host_us[name] = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
+    # 2c. K4 at the tests' shape and at (4, 512, 512)^2; K5 at the probe's
+    # 4096 x 4096 and a ragged shape
+    mcases = [ds_matmul_case((2, 37, 53), (2, 53, 29), seed=40),
+              ds_matmul_case((4, 512, 512), (4, 512, 512), seed=41)]
+    for c in mcases:
+        print(f"ds_matmul {c['shape'][0]} x {c['shape'][1]}: max_abs_err "
+              f"{c['max_abs_err']:.3e} (tol {c['tol']:.3e}), kernel "
+              f"{c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}), plain {c['plain_ms']:.4f} ms, "
+              f"torch.matmul (float64) {c['library_ms']:.4f} ms")
+    rcases = [read_rowsum_case(4096, 4096, seed=50, split=True),
+              read_rowsum_case(4096, 4096, seed=52, split=False),
+              read_rowsum_case(37, 101, seed=51, split=True),
+              read_rowsum_case(37, 101, seed=53, split=False)]
+    for c in rcases:
+        print(f"read_rowsum {c['shape'][0]}x{c['shape'][1]} "
+              f"({'(hi, lo) split' if c['split'] else 'b like a'}): max_abs_err "
+              f"{c['max_abs_err']:.3e} (tol >= {c['tol']:.3e} per row), "
+              f"kernel {c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}), plain {c['plain_ms']:.4f} ms, "
+              f"a.sum(1) + b.sum(1) {c['two_sums_ms']:.4f} ms")
+
     print(f"host time per call, 7x3, 1000 calls: ds_matvec "
           f"{host_us['ds_matvec']:.1f} us, torch.mv {host_us['torch.mv']:.1f}"
           f" us")
@@ -627,15 +820,23 @@ def main() -> int:
     print(f"{card}, peak device memory of the last batch "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # 6. warm re-solves of a batch, then 64 of its lanes below the fast
-    # floor: every lane polishes, the polish phase on K2 (four a step).
-    # That batch runs its fast phase with float64 state: with float32
-    # state this family needs tens of thousands of iterations to reach
-    # the floor on many lanes (PERF.md); tests/test_torch_cuda.py takes a
-    # small batch through the float32-state phase and the polish instead.
-    # 64 lanes, not 256: one lane of the 256 polishes for 83k iterations
-    # (310 s); the first 64 need at most ~4k.
-    warm_batch(head, tuple(t[:256] for t in batch))
+    # 6. warm re-solves of a batch in BatchWorkspace's default mode
+    # (float32 state), then 64 lanes below the fast floor: every lane
+    # polishes, the polish phase on K2 (four a step). The warm batch takes
+    # the 64 lanes whose float32-state solve in phase 5 was shortest: with
+    # float32 state a few lanes of this family need tens of thousands of
+    # iterations (PERF.md: one of the first 64 took 25775 cold, 146 s),
+    # and phase 5 times those. The eps 1e-7 batch runs its fast phase with
+    # float64 state on the first 64 lanes (one lane of the first 256
+    # polishes for 83k iterations, 310 s; the first 64 need at most ~4k);
+    # tests/test_torch_cuda.py takes a small batch through the
+    # float32-state phase and the polish.
+    easy = np.sort(np.argsort(mixed_b["iters"], kind="stable")[:64])
+    lanes = torch.as_tensor(easy, device="cuda")
+    print(f"BatchWorkspace lanes: the 64 with the fewest float32-state "
+          f"iterations in phase 5 (at most {mixed_b['iters'][easy].max()}): "
+          f"seeds {(1000 + easy).tolist()}")
+    warm_batch(head, tuple(t[lanes] for t in batch[:3]) + (batch[3][easy],))
     tight = solve_batch(head, tuple(t[:64] for t in batch),
                         Settings(linsys="direct", chunk_iters=250,
                                  eps_abs=1e-7, eps_rel=1e-7, fast_f32=False),
@@ -650,7 +851,58 @@ def main() -> int:
           f"eps 1e-7 batch: K2 {tight['launches']}, K3 {tight['pair']} "
           f"launches for {fast} fast and {pol} polish steps")
 
-    # 7. where the time of an iteration goes, mixed and pure, on the large
+    # 7. the indirect backend, the default linsys: the large SOCP mixed
+    # and pure (K1 counted around each), then the headline batch in the
+    # default mode (mixed, float32 state; K2 counted around it). Its
+    # objective gate is the float32-state direct batch's (5e-3).
+    solve_indirect(big_p, spec, "large SOCP", big["pobj64"])
+    ind_b = solve_batch(head, batch, Settings(chunk_iters=250),
+                        "headline batch indirect (default: mixed, float32 "
+                        "state)", tol=5e-3)
+    check(ind_b["f32_state"], "headline batch indirect: the default mixed "
+          "solve did not take the float32-state fast phase")
+    check(ind_b["launches"] >= 2 * ind_b["steps"] and ind_b["pair"] == 0,
+          f"headline batch indirect: {ind_b['launches']} K2 launches < 2 x "
+          f"{ind_b['steps']} steps, or K3 launched")
+    check(ind_b["cg"] > 0, "headline batch indirect: no CG iteration")
+    ind64_b = solve_batch(head, batch, Settings(chunk_iters=250,
+                                                fast_f32=False),
+                          "headline batch indirect mixed float64 state")
+    check(ind64_b["launches"] >= 2 * ind64_b["steps"],
+          f"headline batch indirect, float64 state: {ind64_b['launches']} "
+          f"K2 launches < 2 x {ind64_b['steps']} steps")
+
+    # 8. the roofline probe, K5's path (K5 counted around it: the
+    # warm-up's launches and each graph replay's), and K4's entry point at
+    # the tests' shape
+    roofline.launches = 0
+    t0 = time.perf_counter()
+    roof = roofline.measure(n=4096, iters=400, reps=3)
+    k5_launches = roofline.launches
+    print(f"roofline.measure(n=4096, iters=400, reps=3) in "
+          f"{time.perf_counter() - t0:.1f} s, K5 launches {k5_launches}: "
+          + ", ".join(f"{k} {v!r}" for k, v in roof.items()))
+    check(k5_launches > 0, "roofline.measure did not launch K5")
+    check(roof["frac"] is not None and 0 < roof["frac"] <= 1,
+          f"roofline frac {roof['frac']!r}")
+    check(roof["frac_spec"] is not None and roof["read_peak_gbps"] > 0,
+          "roofline: no data-sheet peak for this card, or no read rate")
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    A4 = torch.randn(2, 37, 53, generator=gen, dtype=torch.float64,
+                     device="cuda")
+    B4 = torch.randn(2, 53, 29, generator=gen, dtype=torch.float64,
+                     device="cuda")
+    dsmatmul.launches = 0
+    C4 = dsmatmul.ds_matmul(A4, B4)
+    torch.cuda.synchronize()
+    k4_launches = dsmatmul.launches
+    rel = float((C4 - A4 @ B4).abs().max() / (A4 @ B4).abs().max())
+    print(f"ds_matmul (2, 37, 53) x (2, 53, 29): K4 launches {k4_launches}, "
+          f"max |C - A @ B| / max |A @ B| = {rel:.3e}")
+    check(k4_launches == 1 and rel <= 1e-13,
+          f"ds_matmul: {k4_launches} launches, relative error {rel:.3e}")
+
+    # 9. where the time of an iteration goes, mixed and pure, on the large
     # SOCP (100 iterations each): first unprofiled, in turns, then under
     # the profiler. Last: the profiler's tracing may slow launches after
     # it stops, so nothing timed above runs after it.
@@ -663,6 +915,8 @@ def main() -> int:
           f"{turns[False][1]:.3f} ms/iteration")
     profile_iterations(big_p, spec, True, 100, "large SOCP mixed")
     profile_iterations(big_p, spec, False, 100, "large SOCP pure f64")
+    profile_iterations(big_p, spec, True, 100, "large SOCP indirect mixed",
+                       linsys="indirect")
     profile_batched(head, batch, 50)
     anderson_qr_times(1024, 501 + 10, 10)
 
@@ -697,6 +951,26 @@ def main() -> int:
         "bound_ms": pcases[0]["bound_ms"],
         "bound_by": pcases[0]["bound_by"],
         "library_ms": pcases[0]["library_ms"],
+    }, {
+        "name": "ds_matmul", "route": "cuda",
+        "source": "scs_tpu_torch/csrc/dsmatmul.cu",
+        "replaces": "scs_tpu/ops/dsmatmul.py:35",
+        "launches": k4_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in mcases),
+        "ms": mcases[1]["ms"], "plain_ms": mcases[1]["plain_ms"],
+        "bound_ms": mcases[1]["bound_ms"],
+        "bound_by": mcases[1]["bound_by"],
+        "library_ms": mcases[1]["library_ms"],
+    }, {
+        "name": "read_rowsum", "route": "cuda",
+        "source": "scs_tpu_torch/csrc/readpeak.cu",
+        "replaces": "scs_tpu/ops/roofline.py:78",
+        "launches": k5_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in rcases),
+        "ms": rcases[0]["ms"], "plain_ms": rcases[0]["plain_ms"],
+        "bound_ms": rcases[0]["bound_ms"],
+        "bound_by": rcases[0]["bound_by"],
+        "library_ms": None,
     }]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

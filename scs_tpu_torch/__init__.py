@@ -9,9 +9,14 @@ Solves the quadratic cone program
 by Douglas-Rachford splitting on the homogeneous self-dual embedding, with
 Anderson acceleration, Ruiz equilibration, adaptive dual scaling and
 warm-startable b/c updates (SCS 3.2.11 semantics). It ports the JAX
-package's single-problem direct solve for the zero, nonnegative and
-second-order cones; the double-single matvec that the mixed path runs is a
-hand-written CUDA kernel (`ops/dsmatvec.py`, `csrc/dsmatvec.cu`).
+package's solves of one problem (`Workspace`, `solve`) and of batches
+(`scs_tpu_torch.parallel`) for the zero, nonnegative and second-order
+cones, through the indirect (Jacobi-preconditioned CG, the default) or
+the direct (Cholesky) linear-system backend, in pure and mixed precision.
+The double-single matvec that the mixed path runs is a hand-written CUDA
+kernel (`ops/dsmatvec.py`, `csrc/dsmatvec.cu`); so are the double-single
+matmul (`ops/dsmatmul.py`) and the roofline probe's read kernel
+(`ops/roofline.py`).
 
 Entry points solve on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`.

@@ -108,14 +108,15 @@ class Workspace:
 
         b_orig, c_orig = put(problem.b), put(problem.c)
         zero = torch.zeros((), dtype=dtype, device=dev)
+        A32, P32, lin_cache = prepare_operands(self.backend, A_n, P_n,
+                                               spec.z, self._mixed, ds_split)
         self.data = ProblemData(
             A=A_n, P=P_n, b=b_orig, c=c_orig,  # b/c replaced by update()
             b_orig=b_orig, c_orig=c_orig, nm_b_orig=zero, nm_c_orig=zero,
             scal=scal, cone=cone_data,
             eps_abs=float(stg.eps_abs), eps_rel=float(stg.eps_rel),
             eps_infeas=float(stg.eps_infeas), alpha=float(stg.alpha),
-            lin_cache=prepare_operands(self.backend, A_n, P_n, spec.z,
-                                       self._mixed, ds_split))
+            lin_cache=lin_cache, A32=A32, P32=P32)
         self.update(problem.b, problem.c)
 
         self.scale = float(stg.scale)
@@ -127,18 +128,38 @@ class Workspace:
             mixed=self._mixed)
         self._check_convexity()
         self._iteration = Iteration(spec, stg, self._mixed)
+        # CG iterations of the last solve (indirect backend; the direct
+        # backend counts its refinement passes)
+        self.tot_cg_its = 0
         self.setup_time_ms = (time.perf_counter() - t0) * 1e3
 
     def _mats(self) -> Mats:
-        return Mats(self.data.A, self.data.P, self.data.lin_cache)
+        d = self.data
+        return Mats(d.A, d.P, d.lin_cache, d.A32, d.P32)
 
     def _check_convexity(self) -> None:
-        """Setup-time non-convexity detection: G = R_x + P + A'R_y^{-1}A is
-        SPD iff P is PSD, so a failed Cholesky flags an indefinite P (the
-        analog of the reference's factorization inertia checks)."""
+        """Setup-time non-convexity detection (the analog of the
+        reference's factorization inertia checks): G = R_x + P +
+        A'R_y^{-1}A is SPD iff P is PSD. Direct: a failed Cholesky (a
+        non-finite factor) flags an indefinite P. Indirect: a nonpositive
+        or non-finite Jacobi diagonal, and, since an indefinite P with a
+        positive diagonal passes that test, the smallest eigenvalue of
+        the normalized P (congruence keeps the inertia) from a float64
+        eigvalsh on the solve's device, held to -1e-8 max(1, max|P|): the
+        JAX package's exact (CPU) branch, on either device."""
         factor = (self.derived[0] if isinstance(self.derived, tuple)
                   else self.derived)
-        if not bool(torch.isfinite(factor).all()):
+        if self.stg.linsys == "direct":
+            bad = not bool(torch.isfinite(factor).all())
+        else:
+            bad = bool(((factor <= 0.0) | ~torch.isfinite(factor)).any())
+            P = self.data.P
+            if not bad and P is not None:
+                P64 = P.to(torch.float64)
+                lam_min = float(torch.linalg.eigvalsh(P64).min())
+                scale_ref = max(1.0, float(P64.abs().max()))
+                bad = lam_min < -1e-8 * scale_ref
+        if bad:
             raise ValidationError(
                 "non-convexity detected: the KKT Schur complement is not "
                 "positive definite (P must be positive semidefinite)")
@@ -191,7 +212,8 @@ class Workspace:
             last_scale_update_iter=0, scale_updates=0,
             status=config.UNFINISHED, iter=0,
             aa=accel.aa_init(l, self._iteration.mem, dtype, dev),
-            aa_norm=zf, accepted_accel=zi, rejected_accel=zi)
+            aa_norm=zf, accepted_accel=zi, rejected_accel=zi,
+            tot_cg_its=zi)
 
     # -- scs_solve (scs.c:1327-1484) --
     def solve(self, warm_start: bool = False,
@@ -255,6 +277,7 @@ class Workspace:
         self.scale = float(st.scale)
         self.diag_r = st.diag_r
         self.derived = st.derived
+        self.tot_cg_its = int(st.tot_cg_its)
         return solution, info
 
     def _enter_polish_phase(self, st: LoopState) -> tuple[LoopState, bool]:

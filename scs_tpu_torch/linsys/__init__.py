@@ -6,22 +6,32 @@ Each backend module exports:
   derive(mats, diag_r, scale, mixed=False) -> factor; re-deriving is the
       diag-R update after an adaptive scale change
   solve(mats, diag_r, derived, rhs, warm_start, tol) -> (solution, iters)
+  precompute_batched, derive_batched, solve_batched(..., active=None):
+      the same for a stack of B problems (leading batch axis everywhere)
+  enter_f32_state(mats, diag_r, derived), leave_f32_state(derived): the
+      mixed factor between the batched float64- and float32-state regimes
   METHOD_NAME: human-readable backend name
 
-Only the direct backend (dense Schur-complement Cholesky) is ported; the
-indirect one (Jacobi PCG) is ROADMAP queue 1, item 10.
+Both backends are ported: `indirect` (Jacobi-preconditioned conjugate
+gradient, the default `Settings.linsys`) and `direct` (dense
+Schur-complement Cholesky). Each takes one problem or, through its
+`*_batched` functions, a stack of problems of one shape, and brings its
+own converters between the batched solvers' float64-state and
+float32-state regimes (`enter_f32_state`, `leave_f32_state`).
 
-Mixed precision: with `mixed` on, the factor is an explicit float32
-inverse and float64 iterative refinement recovers full accuracy, with the
-refinement's matvecs on the double-single kernel (`ops.dsmatvec`) where
-the operand splits exist.
+Mixed precision: with `mixed` on, the inner work runs in float32 (the
+direct backend's explicit float32 inverse, the indirect backend's CG on
+the float32 shadows A32 and P32 that `Mats` carries) and float64
+iterative refinement recovers full accuracy, with the refinement's
+matvecs on the double-single kernels (`ops.dsmatvec`) where the operand
+splits exist.
 """
 
 from typing import Any, NamedTuple, Optional
 
 import torch
 
-from . import direct
+from . import direct, indirect
 
 
 class Mats(NamedTuple):
@@ -29,17 +39,15 @@ class Mats(NamedTuple):
 
     A: torch.Tensor
     P: Optional[torch.Tensor]
-    cache: Any               # backend precompute output
+    cache: Any                          # backend precompute output
+    A32: Optional[torch.Tensor] = None  # float32 shadows (mixed indirect CG)
+    P32: Optional[torch.Tensor] = None
 
 
-BACKENDS = {"direct": direct}
+BACKENDS = {"indirect": indirect, "direct": direct}
 
 
 def get_backend(name: str):
-    if name == "indirect":
-        raise NotImplementedError(
-            "linsys='indirect' (Jacobi PCG) is not ported yet (ROADMAP "
-            "queue 1, item 10); use Settings(linsys='direct')")
     if name not in BACKENDS:
         raise ValueError(f"unknown linsys backend {name!r}; "
                          f"available: {sorted(BACKENDS)}")
@@ -92,16 +100,28 @@ def resolve_fast_f32(stg, mixed: bool, ds: bool) -> bool:
     return want
 
 
+def _shadows(backend, A, P, mixed: bool):
+    """(A32, P32): the float32 shadows the mixed indirect CG runs on (the
+    JAX package builds them for both backends; only indirect reads them)."""
+    if not (mixed and backend is indirect):
+        return None, None
+    f32 = torch.float32
+    return A.to(f32), (None if P is None else P.to(f32))
+
+
 def prepare_operands(backend, A, P, n_zero: int, mixed: bool,
                      ds_split: Optional[bool] = None):
-    """The backend's loop-invariant operand cache (ProblemData.lin_cache),
-    with the double-single splits where `resolve_ds_split` says so."""
+    """(A32, P32, cache): the float32 shadows and the backend's
+    loop-invariant operand cache (ProblemData.lin_cache), with the
+    double-single splits where `resolve_ds_split` says so."""
     ds = resolve_ds_split(ds_split, A.device, mixed)
-    return backend.precompute(A, P, n_zero, ds=mixed and ds)
+    return (*_shadows(backend, A, P, mixed),
+            backend.precompute(A, P, n_zero, ds=mixed and ds))
 
 
 def prepare_operands_batched(backend, A, P, n_zero: int, mixed: bool,
                              ds: bool):
     """`prepare_operands` for a (B, m, n) stack (the batched solvers);
     `ds` as resolved by `resolve_ds_split`."""
-    return backend.precompute_batched(A, P, n_zero, ds=mixed and ds)
+    return (*_shadows(backend, A, P, mixed),
+            backend.precompute_batched(A, P, n_zero, ds=mixed and ds))

@@ -40,6 +40,7 @@ import torch
 
 from ..ops import dsmatvec
 from ..ops.dsmatvec import DsSplit
+from .matvec import bmv
 
 METHOD_NAME = "dense-direct-schur-cholesky"
 
@@ -155,11 +156,6 @@ def solve(mats, diag_r, derived, rhs, warm_start=None, tol=None):
 # ---- a batch of problems: every operand has a leading batch axis ----
 
 
-def bmv(M, x):
-    """Batched matrix-vector product: (B, p, q) @ (B, q) -> (B, p)."""
-    return torch.matmul(M, x.unsqueeze(-1)).squeeze(-1)
-
-
 def precompute_batched(A, P, n_zero: int, ds: bool = False) -> DirectCache:
     """`precompute` for a (B, m, n) stack: K[b] = A[b]'A[b] + 999
     A_z[b]'A_z[b] by batched products, and the splits of A, A' and K as
@@ -239,11 +235,15 @@ def _gram_matvec_batched(mats, diag_r, scale, x):
     return y
 
 
-def solve_batched(mats, diag_r, derived, rhs):
+def solve_batched(mats, diag_r, derived, rhs, warm_start=None, tol=None,
+                  active=None):
     """`solve` for a batch: rhs (B, n + m) -> (sol (B, n + m),
     refine_passes). On the mixed path the float32 inverse-apply is one
     batched float32 product and the refinement's K x, A' z and A x run on
-    the batched double-single kernel where the cache holds the splits."""
+    the batched double-single kernel where the cache holds the splits.
+    warm_start, tol and active belong to the iterative backend's protocol
+    and are not read."""
+    del warm_start, tol, active
     m, n = mats.A.shape[1:]
     r_y = diag_r[:, n:n + m]
     rx = rhs[:, :n]

@@ -26,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"dsmatvec": "dsmatvec.cu"}
+SOURCES = {"dsmatvec": "dsmatvec.cu", "readpeak": "readpeak.cu",
+           "dsmatmul": "dsmatmul.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -31,10 +31,13 @@ import torch
 from . import _build
 
 # launches of the CUDA kernel since the counts were last set to 0: one
-# problem (K1), batched (K2) and batched with the pair output (K3)
+# problem (K1), batched (K2) and batched with the pair output (K3). A K1
+# call made while a CUDA graph is captured launches nothing and counts in
+# `captured` instead (the graph's owner counts its replays)
 launches = 0
 batched_launches = 0
 pair_launches = 0
+captured = 0
 
 # gridDim.z, the batch index of a launch, is at most 65535
 MAX_BATCH = 65535
@@ -116,7 +119,7 @@ def _lib():
 
 
 def _launch(split: DsSplit, x: torch.Tensor, m: int, n: int) -> torch.Tensor:
-    global launches
+    global launches, captured
     hi, lo = split
     if not (hi.is_contiguous() and lo.is_contiguous() and x.is_contiguous()):
         raise ValueError("ds_matvec's kernel takes contiguous operands")
@@ -135,7 +138,10 @@ def _launch(split: DsSplit, x: torch.Tensor, m: int, n: int) -> torch.Tensor:
     if err != 0:
         msg = lib.scs_cuda_error_string(err).decode()
         raise RuntimeError(f"ds_matvec kernel launch failed: {msg} ({err})")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return y
 
 

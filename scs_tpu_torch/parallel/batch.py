@@ -20,10 +20,12 @@ MIXED_FAST_FLOOR, a repair of the lanes whose true targets lie below the
 floor, and a polish phase on those lanes only, with float64 state. The
 fast phase runs with float32 state (`Settings.fast_f32`, auto: on with
 mixed) on a float32 view of the problem: A, K, b, c and the state cast to
-float32, the double-single splits kept, so that its solves and checks
-stay float64-accurate through kernels K2 and K3. The state returns to
-float64 at the phase's end, and every lane's dual block is re-projected
-in float64 at the finish (`moreau_repolish_batched`).
+float32, the double-single splits kept, so that its residual checks, and
+the direct backend's solves, stay float64-accurate through kernels K2 and
+K3; each backend converts its factor between the two regimes
+(`enter_f32_state`, `leave_f32_state`). The state returns to float64 at
+the phase's end, and every lane's dual block is re-projected in float64
+at the finish (`moreau_repolish_batched`).
 
 Every entry point solves on the card (`device="cuda"`) unless the caller
 passes `device="cpu"`, and raises without a card. `ds_split=True` builds
@@ -49,7 +51,6 @@ from ..equilibrate import (equilibrate_batched, identity_scaling_batched,
                            unnormalize_xys_batched)
 from ..linsys import (Mats, get_backend, prepare_operands_batched,
                       resolve_ds_split, resolve_fast_f32, resolve_mixed)
-from ..linsys.direct import enter_f32_state, leave_f32_state
 from ..solver import ProblemData
 from ..solver_batched import (BatchedIteration, BatchedState, Rows,
                               fresh_state, moreau_repolish_batched,
@@ -131,6 +132,8 @@ def _parts(spec: ConeSpec, stg: Settings, device, ds_split):
             A_n, P_n = A, P
             scal = identity_scaling_batched(B, m, n, dtype, dev)
             b_n, c_n = b, c
+        A32, P32, lin_cache = prepare_operands_batched(
+            backend, A_n, P_n, spec.z, mixed, ds)
         data = ProblemData(
             A=A_n, P=P_n, b=b_n, c=c_n, b_orig=b, c_orig=c,
             nm_b_orig=torch.amax(torch.abs(b), dim=1),
@@ -138,8 +141,7 @@ def _parts(spec: ConeSpec, stg: Settings, device, ds_split):
             scal=scal, cone=ConeData(bu=bu, bl=bl),
             eps_abs=float(stg.eps_abs), eps_rel=float(stg.eps_rel),
             eps_infeas=float(stg.eps_infeas), alpha=float(stg.alpha),
-            lin_cache=prepare_operands_batched(backend, A_n, P_n, spec.z,
-                                               mixed, ds))
+            lin_cache=lin_cache, A32=A32, P32=P32)
         scale = torch.full((B,), float(stg.scale), dtype=dtype, device=dev)
         diag_r = set_diag_r_batched(spec, n, m, scale, stg.rho_x)
         derived = it.derive(data, diag_r, scale)
@@ -215,29 +217,33 @@ def _floored_data(data: ProblemData) -> ProblemData:
         eps_infeas=max(data.eps_infeas, config.MIXED_CERT_FLOOR))
 
 
-def f32_view(data: ProblemData, st: BatchedState):
+def f32_view(data: ProblemData, st: BatchedState, backend):
     """(data, state) of the float32-state phase: every float64 tensor cast
-    to float32 (the double-single splits, float32 already, kept as they
-    are), and the mixed factor given the split of G that the regime's
-    refinement reads (`linsys.direct.enter_f32_state`)."""
+    to float32 (the double-single splits and the float32 shadows kept as
+    they are), and the mixed factor in the structure that the backend's
+    float32-state regime reads (`backend.enter_f32_state`: the direct
+    backend adds the split of G)."""
     def demote(t):
         return t.to(torch.float32) if t.dtype == torch.float64 else t
 
     data32 = tree_map(demote, data)
     st32 = tree_map(demote, dataclasses.replace(st, derived=None))
-    mats = Mats(data32.A, data32.P, data32.lin_cache)
-    derived = enter_f32_state(mats, st32.diag_r, tree_map(demote, st.derived))
+    mats = Mats(data32.A, data32.P, data32.lin_cache, data32.A32,
+                data32.P32)
+    derived = backend.enter_f32_state(mats, st32.diag_r,
+                                      tree_map(demote, st.derived))
     return data32, dataclasses.replace(st32, derived=derived)
 
 
-def f64_state(st: BatchedState) -> BatchedState:
+def f64_state(st: BatchedState, backend) -> BatchedState:
     """The float32-state phase's state back in float64, its factor in the
-    float64-state regime's structure (`leave_f32_state`)."""
+    float64-state regime's structure (`backend.leave_f32_state`)."""
     def promote(t):
         return t.to(torch.float64) if t.dtype == torch.float32 else t
 
     st64 = tree_map(promote, dataclasses.replace(st, derived=None))
-    return dataclasses.replace(st64, derived=leave_f32_state(st.derived))
+    return dataclasses.replace(st64,
+                               derived=backend.leave_f32_state(st.derived))
 
 
 def _polish_settings(stg: Settings) -> Settings:
@@ -508,7 +514,7 @@ class _Machinery:
                 st = self.resolve_stop(st, stop)
             return self.final_fn(data, st), st
         if self.f32_state:
-            fdata, fst = f32_view(_floored_data(data), st)
+            fdata, fst = f32_view(_floored_data(data), st, self.it.backend)
         else:
             fdata, fst = _floored_data(data), st
         try:
@@ -518,7 +524,7 @@ class _Machinery:
         except KeyboardInterrupt:
             st, stop = fst, "sigint"
         if self.f32_state:
-            st = f64_state(st)
+            st = f64_state(st, self.it.backend)
         if stop:
             st = self.resolve_stop(st, stop)
             return self.finalize(data, st)

@@ -59,6 +59,8 @@ class ProblemData:
     eps_infeas: float
     alpha: float
     lin_cache: Any = None           # backend precompute output
+    A32: Optional[torch.Tensor] = None  # float32 shadows (mixed indirect)
+    P32: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +90,9 @@ class Residuals:
     nm_aty: torch.Tensor
     nm_ax_s_btau: torch.Tensor
     nm_px_aty_ctau: torch.Tensor
+    # normalized-space norms for the indirect backend's CG tolerance
+    nm_ax_s_btau_norm: torch.Tensor
+    nm_px_aty_ctau_norm: torch.Tensor
 
     @staticmethod
     def zeros(dtype, device) -> "Residuals":
@@ -119,6 +124,7 @@ class LoopState:
     aa_norm: torch.Tensor
     accepted_accel: torch.Tensor
     rejected_accel: torch.Tensor
+    tot_cg_its: Any               # CG iterations (0-d int64 on the device)
 
 
 def _norm_inf(x):
@@ -284,7 +290,9 @@ def populate_residuals(data: ProblemData, spec: ConeSpec, u, rsk, it: int,
         nm_ax=_norm_inf(ax_o), nm_s=_norm_inf(s_o),
         nm_px=_norm_inf(px_o), nm_aty=_norm_inf(aty_o),
         nm_ax_s_btau=_norm_inf(ax_s_btau_o),
-        nm_px_aty_ctau=_norm_inf(px_aty_ctau_o))
+        nm_px_aty_ctau=_norm_inf(px_aty_ctau_o),
+        nm_ax_s_btau_norm=_norm_inf(ax_s_btau),
+        nm_px_aty_ctau_norm=_norm_inf(px_aty_ctau))
 
 
 def has_converged(r: Residuals, data: ProblemData) -> torch.Tensor:
@@ -321,12 +329,13 @@ class Iteration:
         self.stg = stg
         self.mixed = mixed
         self.backend = get_backend(stg.linsys)
+        self.is_indirect = stg.linsys == "indirect"
         self.use_aa = stg.acceleration_lookback > 0
         self.mem = max(stg.acceleration_lookback, 1)
 
     @staticmethod
     def mats(data: ProblemData) -> Mats:
-        return Mats(data.A, data.P, data.lin_cache)
+        return Mats(data.A, data.P, data.lin_cache, data.A32, data.P32)
 
     def update_work_cache(self, data: ProblemData, diag_r, derived):
         """g = (I + M)^{-1} [c; -b] (scs.c:1118-1128)."""
@@ -336,17 +345,30 @@ class Iteration:
         return g
 
     def _project_lin_sys(self, data: ProblemData, st: LoopState):
+        """u_t from the KKT solve; returns (u_t, CG iterations). The
+        indirect backend warm-starts CG from u[:n] + tau g[:n] and asks for
+        a tolerance that tightens with the residuals and the iteration
+        count (solver.py:462-485 of the JAX package)."""
         m, n = data.A.shape
         l = n + m + 1
         v, dr = st.v, st.diag_r
         rhs = torch.cat([v[:n] * dr[:n], -v[n:l - 1] * dr[n:l - 1]])
-        sol, _ = self.backend.solve(self.mats(data), dr, st.derived, rhs,
-                                    None, None)
+        warm, tol = None, None
+        if self.is_indirect:
+            warm = st.u[:n] + st.u[l - 1] * st.g[:n]
+            tol = torch.minimum(st.res.nm_ax_s_btau_norm,
+                                st.res.nm_px_aty_ctau_norm)
+            nm_ws = _norm_inf(warm) / float(st.iter + 1) ** config.CG_RATE
+            tol = torch.clamp_min(
+                config.CG_TOL_FACTOR * torch.minimum(tol, nm_ws),
+                config.CG_BEST_TOL)
+        sol, cg_its = self.backend.solve(self.mats(data), dr, st.derived,
+                                         rhs, warm, tol)
         if st.iter < config.FEASIBLE_ITERS:
             tau = torch.ones((), dtype=v.dtype, device=v.device)
         else:
             tau = root_plus(st.g, sol, v, v[l - 1], dr, l - 1)
-        return torch.cat([sol - tau * st.g, tau[None]])
+        return torch.cat([sol - tau * st.g, tau[None]]), cg_its
 
     def _project_cones(self, data: ProblemData, st: LoopState, u_t):
         m, n = data.A.shape
@@ -439,12 +461,13 @@ class Iteration:
         # 3. snapshot for the AA safeguard
         st = dataclasses.replace(st, v=v, v_prev=v)
         # 4. linear system projection
-        u_t = self._project_lin_sys(data, st)
+        u_t, cg_its = self._project_lin_sys(data, st)
         # 5. cone projection
         u = self._project_cones(data, st, u_t)
         # 6. rsk = R (v + u - 2 u_t), before the dual update (scs.c:781-786)
         rsk = (v + u - 2.0 * u_t) * st.diag_r
-        st = dataclasses.replace(st, u=u, u_t=u_t, rsk=rsk)
+        st = dataclasses.replace(st, u=u, u_t=u_t, rsk=rsk,
+                                 tot_cg_its=st.tot_cg_its + cg_its)
 
         if i % config.CONVERGED_INTERVAL == 0:
             # 7. residuals + convergence check, and the scale update

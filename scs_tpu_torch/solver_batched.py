@@ -15,19 +15,27 @@ iteration count is below the cap and it is not a padding row; the rows of
 the other lanes are kept as they were (the freeze).
 
 The per-lane counters (iter, status, cadence, last_scale_update_iter,
-scale_updates, tot_cg_its) are int64 tensors on the host: they change only
-in ways the host knows (lanes that step, statuses read at a check), so the
-loop always knows which lanes are alive without asking the device. The
-loop reads the device once per check step: every lane's new status and
-its adaptive-scale wish, in one transfer. A lane whose scale changes is
-re-factored alone (gather, derive, scatter).
+scale_updates) are int64 tensors on the host: they change only in ways
+the host knows (lanes that step, statuses read at a check), so the loop
+always knows which lanes are alive without asking the device. The CG
+iteration counts (tot_cg_its) stay on the device, where the indirect
+backend counts them. The loop reads the device once per check step:
+every lane's new status and its adaptive-scale wish, in one transfer (the
+indirect backend's CG adds reads of its own, `linsys.indirect`). A lane
+whose scale changes is re-factored alone (gather, derive, scatter).
 
 With float32 state (the `fast_f32` phase of the batched solvers,
 `BatchedIteration(f32_state=True)`) the same iteration runs on float32
 tensors, its steering reductions (root_plus's dots, the iterate norm, the
 objective dots of the check) in the accurate form of `ops.dsreduce`, and
-its linear solve in the float32-state regime of `linsys.direct`. The flag
-is explicit: the pure float32 mode keeps plain reductions.
+its linear solve in the backend's float32-state regime. The flag is
+explicit: the pure float32 mode keeps plain reductions.
+
+With the indirect backend every lane's CG is warm-started from its own
+u[:n] + tau g[:n] and stops at its own tolerance (the JAX package's
+vmapped `project_lin_sys`); the lanes that do not step this time
+(finished, or padding rows of a bucket) take no CG iteration, since their
+rows are restored anyway.
 
 The JAX loop is a compiled `while_loop` whose body is either one unrolled
 macro of lcm(acceleration_interval, 25) steps or a per-step conditional
@@ -49,7 +57,7 @@ import torch
 from . import accel, config
 from .cones.project import proj_dual_cone_batched
 from .linsys import Mats, get_backend
-from .linsys.direct import bmv
+from .linsys.matvec import bmv
 from .ops import dsmatvec, dsreduce
 from .solver import ProblemData, Residuals, _safediv_pos
 from .types import ConeSpec, Settings
@@ -61,8 +69,8 @@ class BatchedState:
     diag_r (B, l); g (B, l - 1); derived (the batch's factors); scale,
     sum_log_scale_factor, n_log_scale_factor, aa_norm (B,) float; res
     (Residuals of (B,) tensors); aa (batched AAState); accepted_accel,
-    rejected_accel (B,) int64. Host int64 tensors (B,): iter, status,
-    cadence, last_scale_update_iter, scale_updates, tot_cg_its."""
+    rejected_accel, tot_cg_its (B,) int64. Host int64 tensors (B,): iter,
+    status, cadence, last_scale_update_iter, scale_updates."""
 
     u: torch.Tensor
     u_t: torch.Tensor
@@ -289,7 +297,9 @@ def populate_residuals_batched(data: ProblemData, spec: ConeSpec, u, rsk,
         nm_ax=_norm_inf(ax_o), nm_s=_norm_inf(s_o),
         nm_px=_norm_inf(px_o), nm_aty=_norm_inf(aty_o),
         nm_ax_s_btau=_norm_inf(ax_s_btau_o),
-        nm_px_aty_ctau=_norm_inf(px_aty_ctau_o))
+        nm_px_aty_ctau=_norm_inf(px_aty_ctau_o),
+        nm_ax_s_btau_norm=_norm_inf(ax_s_btau),
+        nm_px_aty_ctau_norm=_norm_inf(px_aty_ctau))
 
 
 def has_converged_batched(r: Residuals, data: ProblemData) -> torch.Tensor:
@@ -358,7 +368,7 @@ def fresh_state(v, diag_r, g, derived, scale, mem: int) -> BatchedState:
         aa=accel.aa_init_batched(B, l, mem, dtype, dev), aa_norm=zf,
         accepted_accel=zi, rejected_accel=zi,
         iter=zh, status=zh, cadence=zh, last_scale_update_iter=zh,
-        scale_updates=zh, tot_cg_its=zh)
+        scale_updates=zh, tot_cg_its=zi)
 
 
 class BatchedIteration:
@@ -374,6 +384,7 @@ class BatchedIteration:
         self.mixed = mixed
         self.f32_state = f32_state
         self.backend = get_backend(stg.linsys)
+        self.is_indirect = stg.linsys == "indirect"
         self.use_aa = stg.acceleration_lookback > 0
         self.mem = max(stg.acceleration_lookback, 1)
         self.interval = max(stg.acceleration_interval, 1)
@@ -383,13 +394,30 @@ class BatchedIteration:
 
     @staticmethod
     def mats(data: ProblemData) -> Mats:
-        return Mats(data.A, data.P, data.lin_cache)
+        return Mats(data.A, data.P, data.lin_cache, data.A32, data.P32)
 
     def update_work_cache(self, data: ProblemData, diag_r, derived):
         """g = (I + M)^{-1} [c; -b] per lane (scs.c:1118-1128)."""
         h = torch.cat([data.c, -data.b], dim=1)
-        g, _ = self.backend.solve_batched(self.mats(data), diag_r, derived, h)
+        g, _ = self.backend.solve_batched(self.mats(data), diag_r, derived,
+                                          h, None, config.CG_BEST_TOL)
         return g
+
+    @staticmethod
+    def _cg_warm_tol(st: BatchedState, n: int):
+        """Per-lane CG warm start u[:n] + tau g[:n] and tolerance: the JAX
+        `project_lin_sys` (solver.py:462-485) per lane, from each lane's
+        own residual norms and iteration count."""
+        warm = st.u[:, :n] + st.u[:, -1:] * st.g[:, :n]
+        tol = torch.minimum(st.res.nm_ax_s_btau_norm,
+                            st.res.nm_px_aty_ctau_norm)
+        growth = to_device((st.iter + 1).to(warm.dtype) ** config.CG_RATE,
+                           warm.device)
+        nm_ws = _norm_inf(warm) / growth
+        tol = torch.clamp_min(
+            config.CG_TOL_FACTOR * torch.minimum(tol, nm_ws),
+            config.CG_BEST_TOL)
+        return warm, tol
 
     def derive(self, data: ProblemData, diag_r, scale):
         return self.backend.derive_batched(self.mats(data), diag_r, scale,
@@ -488,8 +516,11 @@ class BatchedIteration:
         dr = st.diag_r
         rhs = torch.cat([v[:, :n] * dr[:, :n],
                          -v[:, n:l - 1] * dr[:, n:l - 1]], dim=1)
+        warm, tol = (self._cg_warm_tol(st, n) if self.is_indirect
+                     else (None, None))
         sol, its = self.backend.solve_batched(self.mats(data), dr,
-                                              st.derived, rhs)
+                                              st.derived, rhs, warm, tol,
+                                              act_dev)
         tau = root_plus_batched(st.g, sol, v, v[:, l - 1], dr, l - 1,
                                 acc=self.f32_state)
         if pin_dev is not None:
@@ -509,7 +540,7 @@ class BatchedIteration:
         rsk = (v + u - 2.0 * u_t) * dr
         st = dataclasses.replace(
             st, v=v, v_prev=v, u=u, u_t=u_t, rsk=rsk,
-            tot_cg_its=st.tot_cg_its + its * act.to(torch.int64))
+            tot_cg_its=st.tot_cg_its + its * act_dev)
 
         proceed, proceed_dev = act, act_dev
         if check:

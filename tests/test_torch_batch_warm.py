@@ -221,7 +221,7 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
 
 @pytest.mark.parametrize("kw, item", [
     (dict(linsys="direct", verbose=True), "item 14"),
-    (dict(linsys="indirect"), "item 10"),
+    (dict(linsys="direct", profile_phases=True), "item 14"),
     (dict(linsys="direct", psd_rank=2), "item 13"),
 ])
 def test_parts_outside_the_slice_raise(kw, item):

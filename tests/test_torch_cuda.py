@@ -1,10 +1,14 @@
-"""scs_tpu_torch's CUDA kernels on the card. Every test carries the `cuda`
-marker and skips without a CUDA device. The file imports neither JAX nor
-the JAX package, so it runs where only PyTorch is installed:
+"""scs_tpu_torch's CUDA kernels (K1-K5) and solves on the card. Every test
+carries the `cuda` marker and skips without a CUDA device. The file
+imports neither JAX nor the JAX package, so it runs where only PyTorch is
+installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 (`--noconftest`: the suite's conftest.py configures JAX)."""
+
+import functools
+import math
 
 import numpy as np
 import pytest
@@ -230,3 +234,156 @@ def test_f32_state_below_the_floor_polishes_on_the_card(cuda):
     assert float(res.res_pri.max()) < 10 * eps
     err = (res.pobj.cpu().numpy() - opts) / (1 + np.abs(opts))
     assert np.all(np.abs(err) <= 1e-5)
+
+
+# ---- K4, K5 and the indirect backend ----
+
+@pytest.mark.parametrize("shape", [((2, 37, 53), (2, 53, 29)),
+                                   ((4, 512, 512), (4, 512, 512)),
+                                   ((1, 1, 70), (1, 70, 130))])
+def test_ds_matmul_kernel_matches_plain(cuda, shape):
+    """K4 against its plain version: both sum the same exact float64
+    products in another order, so they agree to 1e-13 of max |A| |B|."""
+    from scs_tpu_torch.ops import dsmatmul
+
+    rng = np.random.RandomState(sum(shape[0]))
+    A = torch.tensor(rng.randn(*shape[0]), device=cuda)
+    B = torch.tensor(rng.randn(*shape[1]), device=cuda)
+    a, b = dsmatvec.split_operand(A), dsmatvec.split_operand(B)
+    before = dsmatmul.launches
+    C = dsmatmul.ds_matmul_pairs(a, b)
+    torch.cuda.synchronize()
+    assert dsmatmul.launches == before + 1
+    ref = dsmatmul.ds_matmul_plain(a, b)
+    bound = 1e-13 * float(torch.matmul(A.abs(), B.abs()).max())
+    assert float((C - ref).abs().max()) <= bound
+    torch.testing.assert_close(dsmatmul.ds_matmul(A, B), ref, rtol=0,
+                               atol=bound)
+
+
+@pytest.mark.parametrize("b_scale", [1e-8, 1.0])
+@pytest.mark.parametrize("shape", [(4096, 4096), (37, 101), (130, 257)])
+def test_read_rowsum_kernel_matches_plain(cuda, shape, b_scale):
+    """K5 against its plain version, b as small as the low half of a
+    double-single split (the probe's input) or of a's magnitude. Float32
+    sums in two orders agree to 4 ceil(log2 n) 2^-24 sum_j |a + b| per row:
+    at these shapes the kernel adds at most 39 terms in sequence (n/128
+    per accumulator with 16-byte loads, n/32 without, then 7 combining
+    adds), and a kernel that dropped b or read a twice would miss that
+    limit by orders of magnitude where b is of a's magnitude."""
+    from scs_tpu_torch.ops import roofline
+
+    m, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randn(m, n, generator=gen, device=cuda)
+    b = torch.randn(m, n, generator=gen, device=cuda) * b_scale
+    before = roofline.launches
+    o = roofline.read_rowsum(a, b)
+    torch.cuda.synchronize()
+    assert roofline.launches == before + 1 and o.shape == (m, 1)
+    ref = roofline.read_rowsum_plain(a, b)
+    tol = (4 * math.ceil(math.log2(n)) * 2.0 ** -24
+           * (a + b).abs().sum(1, keepdim=True))
+    assert bool(((o - ref).abs() <= tol).all())
+
+
+def test_indirect_solve_on_the_card_matches_the_plain_version(cuda):
+    """The default settings (the indirect backend, mixed on the card)
+    through K1 against the same solve on the CPU through its plain
+    version, and the pure float64 indirect solve on both devices: the
+    same status, objectives within 1e-4 (1 + |pobj|), iteration counts
+    within [0.8, 1.25] (CG stops on data-dependent tests, and the two
+    devices sum in other orders)."""
+    spec = ConeSpec(z=5, l=20, q=(5, 5, 5, 10))
+    p = gen_planted(spec, n=30, seed=3, density=0.3)
+    for stg, cpu_stg in ((Settings(), Settings(mixed_precision=True)),
+                         (Settings(mixed_precision=False),
+                          Settings(mixed_precision=False))):
+        dsmatvec.launches = 0
+        ws = Workspace(p.problem, spec, p.cone_data, stg)
+        _, info = ws.solve()
+        launches = dsmatvec.launches
+        cpu = Workspace(p.problem, spec, p.cone_data, cpu_stg, device="cpu",
+                        ds_split=cpu_stg.mixed_precision)
+        _, ref = cpu.solve()
+        assert info.status == ref.status == "solved"
+        assert info.lin_sys_solver == "dense-indirect-jacobi-pcg"
+        assert ws.tot_cg_its > info.iter
+        if ws._mixed:
+            assert launches >= 2 * info.iter
+        assert abs(info.pobj - ref.pobj) <= 1e-4 * (1 + abs(ref.pobj))
+        assert 0.8 <= info.iter / ref.iter <= 1.25
+
+
+def test_indirect_batch_on_the_card_matches_the_plain_version(cuda):
+    """B = 8 through the default settings (indirect, mixed, float32-state
+    fast phase, K2) against the same batch on the CPU through the plain
+    versions: the same statuses, objectives within 1e-3 of the planted
+    optimum, iteration counts within [0.5, 2]."""
+    spec, A, b, c, bnd, opts = _small_batch(8)
+    dsmatvec.batched_launches = 0
+    res = make_chunked_batch_solver(spec, Settings())(
+        A.to(cuda), b.to(cuda), c.to(cuda), bnd.to(cuda), bnd.to(cuda))
+    launches = dsmatvec.batched_launches
+    ref = make_chunked_batch_solver(spec, Settings(mixed_precision=True),
+                                    device="cpu", ds_split=True)(
+        A, b, c, bnd, bnd)
+    assert torch.equal(res.status.cpu(), ref.status)
+    assert bool((ref.status == 1).all())
+    assert launches >= 2 * int(res.iters.max())
+    assert bool((res.tot_cg_its > res.iters).all())
+    err = (res.pobj.cpu().numpy() - opts) / (1 + np.abs(opts))
+    assert np.all(np.abs(err) <= 1e-3)
+    ratio = res.iters.cpu().double() / ref.iters.double()
+    assert bool(((0.5 <= ratio) & (ratio <= 2.0)).all())
+
+
+def test_indirect_cg_graphs_change_nothing(cuda, monkeypatch):
+    """The CG blocks replayed as CUDA graphs run the eager loop's
+    algorithm: on one batched PCG solve (float64 and float32) the same
+    iteration counts and solutions within 1e-12 (float64) or 1e-5
+    (float32) of the eager loop's, relative to their norm (the two are
+    not bitwise equal; the cause is not isolated); a second solve replays
+    the cached graph and gives the first one's result bitwise. A batch
+    solve through graphs and eagerly, pure float64 at eps 1e-7, ends with
+    the same statuses and objectives within 1e-4 (1 + |pobj|): at that eps
+    both runs end far closer to the optimum than the limit, whatever
+    rounding separates their trajectories (at the default eps with float32
+    state two runs may end 7e-4 apart on a lane, each within SCS's
+    tolerance)."""
+    from scs_tpu_torch.linsys import indirect
+
+    rng = np.random.RandomState(9)
+    B, m, n = 8, 60, 40
+    A = torch.tensor(rng.randn(B, m, n), device=cuda)
+    dr = torch.tensor(np.concatenate([np.full((B, n), 1e-6),
+                                      np.ones((B, m)), np.ones((B, 1))], 1),
+                      device=cuda)
+    b = torch.tensor(rng.randn(B, n), device=cuda)
+    for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        ops = (A.to(dt), None, dr.to(dt))
+        M = 1.0 / (dr[:, :n] + (A * A).sum(1)).to(dt)
+        tol = torch.full((B,), 1e-10 if dt == torch.float64 else 1e-5,
+                         dtype=dt, device=cuda)
+        out = {}
+        for graphs in (False, True, True):
+            x, its = indirect._pcg(ops, M, None, b.to(dt), 10 * n, tol,
+                                   eager=not graphs)
+            if graphs in out:
+                assert torch.equal(x, out[graphs][0])
+                assert torch.equal(its, out[graphs][1])
+            out[graphs] = (x, its)
+        (xe, ie), (xg, ig) = out[False], out[True]
+        assert torch.equal(ie, ig), (ie, ig)
+        assert float((xg - xe).norm() / xe.norm()) <= rtol
+
+    spec, A, b, c, bnd, _ = _small_batch(8)
+    args = (A.to(cuda), b.to(cuda), c.to(cuda), bnd.to(cuda), bnd.to(cuda))
+    stg = Settings(mixed_precision=False, eps_abs=1e-7, eps_rel=1e-7)
+    runs = [make_batch_solver(spec, stg)(*args)]
+    monkeypatch.setattr(indirect, "_pcg",
+                        functools.partial(indirect._pcg, eager=True))
+    runs.append(make_batch_solver(spec, stg)(*args))
+    assert torch.equal(runs[0].status, runs[1].status)
+    p0, p1 = runs[0].pobj, runs[1].pobj
+    assert bool(((p0 - p1).abs() <= 1e-4 * (1 + p1.abs())).all())

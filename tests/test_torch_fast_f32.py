@@ -27,7 +27,7 @@ from scs_tpu.parallel import make_chunked_batch_solver as j_make_chunked
 from scs_tpu.types import ConeSpec as JConeSpec
 from scs_tpu.types import Settings as JSettings
 from scs_tpu_torch import ConeSpec, Settings, config, convert
-from scs_tpu_torch.linsys import resolve_ds_split, resolve_fast_f32
+from scs_tpu_torch.linsys import direct, resolve_ds_split, resolve_fast_f32
 from scs_tpu_torch.ops import dsmatvec, dsreduce
 from scs_tpu_torch.parallel import (BatchWorkspace,
                                     make_chunked_batch_solver,
@@ -197,13 +197,13 @@ def test_f32_view_and_back():
         spec, Settings(linsys="direct", mixed_precision=True), device="cpu",
         ds_split=True)
     data, st = init_fn(tA, None, tb, tc)
-    d32, s32 = batch_mod.f32_view(data, st)
+    d32, s32 = batch_mod.f32_view(data, st, direct)
     assert d32.A.dtype == d32.lin_cache.K.dtype == s32.v.dtype == \
         torch.float32
     assert d32.lin_cache.ds_fwd.hi is data.lin_cache.ds_fwd.hi
     assert len(st.derived) == 2 and len(s32.derived) == 3
     assert s32.iter is st.iter
-    back = batch_mod.f64_state(s32)
+    back = batch_mod.f64_state(s32, direct)
     assert back.v.dtype == back.derived[1].dtype == torch.float64
     assert len(back.derived) == 2 and back.derived[0].dtype == torch.float32
     torch.testing.assert_close(back.v, st.v, rtol=1e-7, atol=0)

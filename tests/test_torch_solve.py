@@ -207,7 +207,7 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(linsys="indirect"), "item 10"),
+    (dict(linsys="direct", write_data_filename="t.bin"), "item 14"),
     (dict(linsys="direct", verbose=True), "item 14"),
     (dict(linsys="direct", log_csv_filename="t.csv"), "item 14"),
     (dict(linsys="direct", psd_rank=2), "item 13"),
