@@ -6,9 +6,11 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit; build every kernel from csrc/;
   2. each kernel against its plain PyTorch version at the shapes the main
-     path gives it, with times (CUDA events, median of 30 launches, L2
-     flushed before each) beside the least time the card could take and
-     beside one PyTorch library call that computes the same function;
+     path gives it and at one shape for each variant its launcher picks,
+     with times (CUDA events, device time only, median of 30 launches,
+     L2 flushed before each) beside the least time the card could take,
+     the share of it reached, and one PyTorch library call that computes
+     the same function;
   3. the main path: the large planted SOCP of bench.py's large_socp_leg
      (n=2048, m=8192, density 0.3) solved through Workspace on the card,
      mixed precision (the default there), with the kernel launch counts
@@ -76,6 +78,9 @@ FP64_TENSOR_FLOPS = 67e12
 FP32_FLOPS = 67e12
 REPS = 30
 
+# bench.py's headline family (_headline_problem): n = 100, m = 400
+HEADLINE = ConeSpec(z=40, l=120, q=(20, 34, 14, 51, 22, 31, 1, 67))
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -93,10 +98,24 @@ def card_line() -> str:
 _flush = None
 
 
-def median_ms(fn) -> float:
-    """Median time of one call of fn on the card, the 50 MB L2 flushed
-    before each timed call."""
+# cycles the card spins before each timed call (~0.5 ms at 1.98 GHz), so
+# that the host has enqueued the whole call before its start event runs
+SPIN_CYCLES = 1_000_000
+
+
+def median_ms(fn, spin: bool = True) -> float:
+    """Median device time of one call of fn on the card, the 50 MB L2
+    flushed before each timed call. With `spin`, the card spins
+    (torch.cuda._sleep) between the flush and the start event while the
+    host enqueues the call, so the time is the device's alone and not the
+    host's launch cost. Without it, as timed before the spin was added,
+    the host's enqueue time is counted too wherever it outlasts the
+    flush."""
     global _flush
+    if spin and not hasattr(torch.cuda, "_sleep"):
+        raise RuntimeError("median_ms: this PyTorch has no torch.cuda._sleep"
+                           ", which the device-time timer spins the card "
+                           "with")
     if _flush is None:
         _flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
     for _ in range(3):
@@ -106,12 +125,22 @@ def median_ms(fn) -> float:
         _flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def both_timers(kernel, library) -> dict:
+    """The kernel's and the library call's times with the spin, and again
+    without it (`*_no_spin`), the timer that includes the host's enqueue."""
+    return {"ms": median_ms(kernel), "library_ms": median_ms(library),
+            "ms_no_spin": median_ms(kernel, spin=False),
+            "library_ms_no_spin": median_ms(library, spin=False)}
 
 
 def ds_matvec_case(m: int, n: int, seed: int) -> dict:
@@ -134,9 +163,9 @@ def ds_matvec_case(m: int, n: int, seed: int) -> dict:
     bound = max(nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS) * 1e3
     return {
         "shape": [m, n], "max_abs_err": err, "tol": tol,
-        "ms": median_ms(lambda: dsmatvec.ds_matvec(split, x)),
+        **both_timers(lambda: dsmatvec.ds_matvec(split, x),
+                      lambda: torch.mv(A64, x)),
         "plain_ms": median_ms(lambda: dsmatvec.ds_matvec_plain(split, x)),
-        "library_ms": median_ms(lambda: torch.mv(A64, x)),
         "bound_ms": bound,
         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                      >= flops / FP64_FLOPS else "operations"),
@@ -199,9 +228,9 @@ def ds_matvec_batched_case(B: int, m: int, n: int, seed: int,
     return {
         "name": name, "shape": [B, m, n], "strided_x": strided,
         "x32": x32, "max_abs_err": err, "tol": float(tol_lane.min()),
-        "ms": median_ms(lambda: kernel(split, x)),
+        **both_timers(lambda: kernel(split, x),
+                      lambda: torch.matmul(A64, xc)),
         "plain_ms": median_ms(lambda: plain(split, x)),
-        "library_ms": median_ms(lambda: torch.matmul(A64, xc)),
         "bound_ms": bound,
         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                      >= flops / FP64_FLOPS else "operations"),
@@ -237,9 +266,9 @@ def ds_matmul_case(ashape, bshape, seed: int) -> dict:
     return {
         "shape": [list(ashape), list(bshape)], "max_abs_err": err,
         "tol": tol,
-        "ms": median_ms(lambda: dsmatmul.ds_matmul_pairs(a, b)),
+        **both_timers(lambda: dsmatmul.ds_matmul_pairs(a, b),
+                      lambda: torch.matmul(A64, B64)),
         "plain_ms": median_ms(lambda: dsmatmul.ds_matmul_plain(a, b)),
-        "library_ms": median_ms(lambda: torch.matmul(A64, B64)),
         "bound_ms": max(by_bytes, by_ops) * 1e3,
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
     }
@@ -363,9 +392,12 @@ def solve_batch(spec, batch, stg, label, tol=1e-3):
                f"refinement passes {indirect.refine_passes} "
                f"({indirect.refine_passes / max(steps, 1):.2f} per step)"
                if stg.linsys == "indirect" else "")
+    slow = np.argsort(-iters, kind="stable")[:3]
     print(f"{label}: B={B}, wall {wall:.3f} s, {int(iters.sum())} "
           f"lane-iterations ({iters.min()}-{iters.max()} per lane, median "
-          f"{int(np.median(iters))}), {iters.sum() / wall:.0f} "
+          f"{int(np.median(iters))}; slowest lanes (lane: iterations) "
+          f"{', '.join(f'{i}: {iters[i]}' for i in slow)}), "
+          f"{iters.sum() / wall:.0f} "
           f"lane-iterations/s, {steps} lockstep steps, "
           f"{wall / max(steps, 1) * 1e3:.3f} ms/step, levels (phase, "
           f"bucket, alive at end, steps, s) {levels}, "
@@ -655,6 +687,76 @@ def anderson_qr_times(B: int, L: int, mem: int) -> None:
           f"max |Q'c difference| {diff:.2e}")
 
 
+# phase 2's rows; tools/torch_kernel_rows.py times the same rows for two
+# trees in one run on one card
+K1_SHAPES = [(8192, 2048), (2048, 8192), (2048, 2048),  # large SOCP A, A', K
+             (400, 100), (100, 400),                    # headline
+             (37, 101), (7, 3), (16, 3000),             # ragged
+             (128, 128), (64, 200), (64, 1000),         # 8, 16, 64 a row
+             (128, 129)]                                # A unaligned, n 129
+# (B, m, n, x strided, x float32, pair output)
+K2_SHAPES = [(1024, 400, 100, False, False, False),     # A, float64 state
+             (1024, 100, 400, False, False, False),     # A'
+             (1024, 100, 100, False, False, False),     # K
+             (3, 37, 101, False, False, False),         # ragged
+             (1024, 400, 100, True, False, False),      # x a slice
+             (1024, 400, 100, False, True, False),      # A, float32 state
+             (1024, 100, 400, True, True, False),       # A' y, a slice
+             (1, 2048, 2048, True, False, False)]       # B = 1, x a slice
+K3_SHAPES = [(1024, 100, 100, False, True, True),       # K3: G x
+             (3, 37, 101, False, True, True),           # ragged
+             (1024, 100, 100, True, True, True)]        # x a slice
+K4_SHAPES = [((2, 37, 53), (2, 53, 29)),                # the tests' shape
+             ((4, 512, 512), (4, 512, 512)),
+             ((7, 33, 1), (7, 1, 30)),                  # k = 1, B = 7
+             ((1, 70, 130), (1, 130, 66))]              # k, n not 4 k
+
+
+def share(c: dict) -> str:
+    return (f"{100 * c['bound_ms'] / c['ms']:.0f}% of bound; without the "
+            f"spin: kernel {c['ms_no_spin']:.4f} ms, library "
+            f"{c['library_ms_no_spin']:.4f} ms")
+
+
+def kernel_rows_k1_k3():
+    """Phase 2's K1, K2 and K3 rows, checked and timed, each printed."""
+    cases = [ds_matvec_case(m, n, seed=i)
+             for i, (m, n) in enumerate(K1_SHAPES)]
+    for c in cases:
+        print(f"ds_matvec {c['shape'][0]}x{c['shape'][1]}: max_abs_err "
+              f"{c['max_abs_err']:.3e} (tol {c['tol']:.3e}), kernel "
+              f"{c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}), {share(c)}, plain {c['plain_ms']:.4f} "
+              f"ms, torch.mv {c['library_ms']:.4f} ms")
+    bcases, pcases = ([ds_matvec_batched_case(B, m, n, seed=20 + i,
+                                              strided=st, x32=x32,
+                                              pair=pair)
+                       for i, (B, m, n, st, x32, pair) in enumerate(shapes)]
+                      for shapes in (K2_SHAPES, K3_SHAPES))
+    for c in bcases + pcases:
+        print(f"{c['name']} {'x'.join(map(str, c['shape']))}"
+              f"{' (x strided)' if c['strided_x'] else ''}"
+              f"{' (x float32)' if c['x32'] else ''}: max_abs_err "
+              f"{c['max_abs_err']:.3e} (tol >= {c['tol']:.3e} per lane), "
+              f"kernel {c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}), {share(c)}, plain {c['plain_ms']:.4f} "
+              f"ms, torch.matmul (float64) {c['library_ms']:.4f} ms")
+    return cases, bcases, pcases
+
+
+def kernel_rows_k4():
+    """Phase 2's K4 rows, checked and timed, each printed."""
+    mcases = [ds_matmul_case(a, b, seed=40 + i)
+              for i, (a, b) in enumerate(K4_SHAPES)]
+    for c in mcases:
+        print(f"ds_matmul {c['shape'][0]} x {c['shape'][1]}: max_abs_err "
+              f"{c['max_abs_err']:.3e} (tol {c['tol']:.3e}), kernel "
+              f"{c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}), {share(c)}, plain {c['plain_ms']:.4f} "
+              f"ms, torch.matmul (float64) {c['library_ms']:.4f} ms")
+    return mcases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -671,48 +773,13 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for name, res in built.items():
         print(f"  {name}: {res['seconds']:.1f} s")
-        for line in res["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
+        for line in _build.resources(res["log"]):
+            print(f"    {line}")
 
-    # 2. K1 against its plain version at the main path's shapes
-    n_big, m_big = 2048, 8192
-    shapes = [(m_big, n_big), (n_big, m_big), (n_big, n_big),  # A, A', K
-              (400, 100), (100, 400),                          # headline
-              (37, 101), (7, 3), (16, 3000)]                   # ragged
-    cases = [ds_matvec_case(m, n, seed=i) for i, (m, n) in enumerate(shapes)]
-    for c in cases:
-        print(f"ds_matvec {c['shape'][0]}x{c['shape'][1]}: max_abs_err "
-              f"{c['max_abs_err']:.3e} (tol {c['tol']:.3e}), kernel "
-              f"{c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']}), plain {c['plain_ms']:.4f} ms, torch.mv "
-              f"{c['library_ms']:.4f} ms")
-
-    # 2b. K2 against its plain version at the batched headline's shapes
-    # (B, m, n, x strided, x float32, pair output)
-    bshapes = [(1024, 400, 100, False, False, False),    # A, float64 state
-               (1024, 100, 400, False, False, False),    # A'
-               (1024, 100, 100, False, False, False),    # K
-               (3, 37, 101, False, False, False),        # ragged
-               (1024, 400, 100, True, False, False),     # x a slice
-               (1024, 400, 100, False, True, False),     # A, float32 state
-               (1024, 100, 400, True, True, False)]      # A' y, a slice
-    pshapes = [(1024, 100, 100, False, True, True),      # K3: G x
-               (3, 37, 101, False, True, True),          # ragged
-               (1024, 100, 100, True, True, True)]       # x a slice
-    bcases, pcases = ([ds_matvec_batched_case(B, m, n, seed=20 + i,
-                                              strided=st, x32=x32,
-                                              pair=pair)
-                       for i, (B, m, n, st, x32, pair) in enumerate(shapes)]
-                      for shapes in (bshapes, pshapes))
-    for c in bcases + pcases:
-        print(f"{c['name']} {'x'.join(map(str, c['shape']))}"
-              f"{' (x strided)' if c['strided_x'] else ''}"
-              f"{' (x float32)' if c['x32'] else ''}: max_abs_err "
-              f"{c['max_abs_err']:.3e} (tol >= {c['tol']:.3e} per lane), "
-              f"kernel {c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']}), plain {c['plain_ms']:.4f} ms, "
-              f"torch.matmul (float64) {c['library_ms']:.4f} ms")
+    # 2. K1-K3 against their plain versions at the main path's shapes and
+    # at one shape for each variant the launcher can pick
+    cases, bcases, pcases = kernel_rows_k1_k3()
+    n_big = 2048
 
     # host cost of one call: the wrapper's checks and the ctypes launch,
     # against torch.mv's dispatch, at a size where the device is idle
@@ -729,16 +796,9 @@ def main() -> int:
             fn()
         host_us[name] = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-    # 2c. K4 at the tests' shape and at (4, 512, 512)^2; K5 at the probe's
-    # 4096 x 4096 and a ragged shape
-    mcases = [ds_matmul_case((2, 37, 53), (2, 53, 29), seed=40),
-              ds_matmul_case((4, 512, 512), (4, 512, 512), seed=41)]
-    for c in mcases:
-        print(f"ds_matmul {c['shape'][0]} x {c['shape'][1]}: max_abs_err "
-              f"{c['max_abs_err']:.3e} (tol {c['tol']:.3e}), kernel "
-              f"{c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']}), plain {c['plain_ms']:.4f} ms, "
-              f"torch.matmul (float64) {c['library_ms']:.4f} ms")
+    # 2c. K4 at the tests' shape, at (4, 512, 512)^2 and at its ragged
+    # edges; K5 at the probe's 4096 x 4096 and a ragged shape
+    mcases = kernel_rows_k4()
     rcases = [read_rowsum_case(4096, 4096, seed=50, split=True),
               read_rowsum_case(4096, 4096, seed=52, split=False),
               read_rowsum_case(37, 101, seed=51, split=True),
@@ -768,7 +828,7 @@ def main() -> int:
           f"of solve time")
 
     # 4. the headline problem
-    head = ConeSpec(z=40, l=120, q=(20, 34, 14, 51, 22, 31, 1, 67))
+    head = HEADLINE
     solve_planted(gen_planted(head, n=100, seed=1000, density=0.1), head,
                   "headline")
 

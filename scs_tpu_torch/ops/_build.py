@@ -7,7 +7,9 @@ flags, so an edited source builds anew and an unchanged one is reused.
 Builds run at first use; `build()` starts one nvcc per missing library,
 all at once, and waits for all of them.
 
-    python -m scs_tpu_torch.ops._build      # build every kernel, print logs
+    python -m scs_tpu_torch.ops._build      # build every kernel, print
+                                            # each variant's registers,
+                                            # shared memory and spills
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -96,7 +99,39 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def resources(log: str) -> list[str]:
+    """One line per kernel variant from ptxas' -v output in an nvcc log:
+    its name (demangled where the toolkit's cu++filt is found), then its
+    registers, static shared memory, barriers and spill bytes."""
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            rows.append((name, line.split(":", 1)[-1].strip(), spill))
+            name = None
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if rows and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, check=True)
+        names = out.stdout.splitlines()
+        if len(names) == len(rows):
+            rows = [(n, u, sp) for n, (_, u, sp) in zip(names, rows)]
+    return [f"{n}: {u}; {sp}" for n, u, sp in rows]
+
+
 if __name__ == "__main__":
     for kname, res in build().items():
         print(f"{kname}: {res['path']} ({res['seconds']:.1f} s)")
-        print(res["log"])
+        for line in resources(res["log"]) or res["log"].splitlines():
+            print(f"  {line}")
+        if kname == "dsmatmul":
+            lib = ctypes.CDLL(str(res["path"]))
+            tile = [ctypes.c_int() for _ in range(4)]
+            lib.scs_ds_matmul_tile(*[ctypes.byref(t) for t in tile])
+            bm, bn, threads, smem = (t.value for t in tile)
+            print(f"  tile {bm} x {bn} of C, {threads} threads, {smem} "
+                  f"bytes of dynamic shared memory a block")

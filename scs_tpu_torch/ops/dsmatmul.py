@@ -8,11 +8,14 @@ entry point is `ds_matmul` itself.
 
 On a CUDA tensor `ds_matmul_pairs` launches the hand-written kernel in
 `csrc/dsmatmul.cu` (built with nvcc for sm_90a at first use, see
-`_build.py`), with one `blockIdx.z` per product of the stack; on a CPU
-tensor it runs the plain version, `(Ah + Al) @ (Bh + Bl)` in float64,
-which the tests hold against numpy and the JAX kernel and which the chip
-smoke test holds against the kernel. Any other device raises. The pairs
-are not padded: the kernel masks its own ragged edges.
+`_build.py`): a tiled product on the float64 tensor cores, one block per
+128 x 64 tile of C and `blockIdx.z` per product of the stack, fed by a
+`cp.async` pipeline. On a CPU tensor it runs the plain version,
+`(Ah + Al) @ (Bh + Bl)` in float64, which the tests hold against numpy and
+the JAX kernel and which the chip smoke test holds against the kernel.
+Any other device raises. The pairs are not padded: the kernel masks its
+own ragged edges, with 16-byte copies where k (for A) or n (for B) is a
+multiple of 4 and 4-byte copies otherwise.
 """
 
 from __future__ import annotations
@@ -27,10 +30,10 @@ from .dsmatvec import DsSplit, split_operand
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
 
-# gridDim.z (the product index) and gridDim.y (row tiles of 64) are at
-# most 65535
+# gridDim.z (the product index) and gridDim.y (row tiles of the kernel's
+# 128-row tile, `scs_ds_matmul_tile`) are at most 65535
 MAX_BATCH = 65535
-_TILE_M = 64
+_TILE_M = 128
 
 
 def ds_matmul_plain(a: DsSplit, b: DsSplit) -> torch.Tensor:
@@ -78,8 +81,8 @@ def ds_matmul_pairs(a: DsSplit, b: DsSplit) -> torch.Tensor:
         raise ValueError("ds_matmul's kernel takes contiguous pairs")
     if nb > MAX_BATCH or -(-m // _TILE_M) > MAX_BATCH:
         raise ValueError(f"ds_matmul launches one grid slice per product "
-                         f"and per 64 rows, at most {MAX_BATCH} of each; "
-                         f"got {nb} products of {m} rows")
+                         f"and per {_TILE_M} rows, at most {MAX_BATCH} of "
+                         f"each; got {nb} products of {m} rows")
     c = torch.empty(nb, m, n, dtype=torch.float64, device=dev)
     if nb == 0 or m == 0 or n == 0:
         return c

@@ -18,7 +18,10 @@ the tests compare against the JAX kernels and which the chip smoke test
 compares against the CUDA kernel. Any other device raises.
 
 Unlike the TPU split, the pair is not padded: the kernel masks its own
-ragged edges.
+ragged edges. `launch_config` picks the kernel's variant on the host from
+the shape, the strides and the pointers: threads per row from n, the
+block size from m, and 16-byte loads for A and for x each where its own
+alignment allows (a column slice of the iterate as x keeps A's).
 """
 
 from __future__ import annotations
@@ -104,8 +107,65 @@ def ds_matvec(split: DsSplit, x: torch.Tensor) -> torch.Tensor:
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_longlong,
-                                     ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_longlong] + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p]
+
+# threads per row the kernel is built for, and block sizes
+_TPRS = (8, 16, 32, 64, 128, 256)
+_BLOCKS = (256, 128, 64)
+
+
+class LaunchConfig(NamedTuple):
+    """The kernel variant for one launch: threads per row, threads per
+    block, and whether A (hi and lo) and x take 16-byte loads."""
+
+    tpr: int
+    threads: int
+    vec_a: bool
+    vec_x: bool
+
+
+# an H100 holds 132 x 2048 threads at once: rows at which one warp per row
+# fills it, and loads at which one load per thread does
+_MANY_ROWS = 132 * 64
+_ONE_WAVE = 132 * 2048
+_UNROLL = 4     # chunks a thread has in flight (kUnroll in the kernel)
+
+
+def launch_config(batch: int, m: int, n: int, lda: int, a_bstride: int,
+                  x_bstride: int, ptrs: tuple[int, int, int],
+                  x_itemsize: int) -> LaunchConfig:
+    """Choose the kernel's variant for y[b] = (hi[b] + lo[b]) x[b], b <
+    batch, with m rows of n columns, A's row stride lda and batch stride
+    a_bstride (floats), x's batch stride x_bstride (elements of x_itemsize
+    bytes) and the data pointers (hi, lo, x). Strides of a batch of one
+    are not read.
+
+    A takes float4 loads when every problem's rows of hi and lo start on
+    16-byte boundaries; x takes 16-byte loads when, in addition, every
+    problem's x does. Threads per row (8 to 256): as many as give each
+    thread kUnroll loads of a row where the loads outnumber the threads
+    the card holds, else one load each (a small product is bound by
+    latency: the shorter a thread's chain, the sooner it ends); at most
+    32 where a warp per row would fill the card, so that a row's sum
+    stays within a warp. Block: 256, 128 or 64 threads, whichever leaves
+    the fewest rows of a problem idle in its last block (the largest on
+    a tie)."""
+    hi_p, lo_p, x_p = ptrs
+    if batch == 1:
+        a_bstride = x_bstride = 0
+    vec_a = (hi_p % 16 == 0 and lo_p % 16 == 0 and lda % 4 == 0
+             and a_bstride % 4 == 0)
+    vec_x = (vec_a and x_p % 16 == 0
+             and (x_bstride * x_itemsize) % 16 == 0)
+    loads = -(-n // 4) if vec_a else n      # loads a row takes
+    rows = batch * m
+    want = -(-loads // _UNROLL) if rows * loads > _ONE_WAVE else loads
+    cap = 32 if rows >= _MANY_ROWS else _TPRS[-1]
+    tpr = next((t for t in _TPRS if t >= min(want, cap)), _TPRS[-1])
+    threads = min((b for b in _BLOCKS if b >= tpr),
+                  key=lambda b: -(-m // (b // tpr)) * (b // tpr) - m)
+    return LaunchConfig(tpr, threads, vec_a, vec_x)
 
 
 def _lib():
@@ -127,14 +187,14 @@ def _launch(split: DsSplit, x: torch.Tensor, m: int, n: int) -> torch.Tensor:
     if m == 0:
         return y
     lib = _lib()
-    # 16-byte loads need 16-byte aligned rows of hi/lo and pairs of x
-    ptrs = (hi.data_ptr(), lo.data_ptr(), x.data_ptr())
-    vec = int(n % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+    cfg = launch_config(1, m, n, n, 0, 0, (hi.data_ptr(), lo.data_ptr(),
+                                           x.data_ptr()), 8)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.scs_ds_matvec(hi.data_ptr(), lo.data_ptr(), x.data_ptr(),
-                                y.data_ptr(), None, m, n, n, 1, 0, 0, 0, vec,
-                                0, stream)
+                                y.data_ptr(), None, m, n, n, 1, 0, 0, 0,
+                                cfg.tpr, cfg.threads, int(cfg.vec_a),
+                                int(cfg.vec_x), 0, stream)
     if err != 0:
         msg = lib.scs_cuda_error_string(err).decode()
         raise RuntimeError(f"ds_matvec kernel launch failed: {msg} ({err})")
@@ -252,24 +312,19 @@ def _launch_batched(name: str, split: DsSplit, x: torch.Tensor,
     if m == 0 or B == 0:
         return False
     lib = _lib()
-    lda, a_bs = hi.stride(1), hi.stride(0)
-    x_bs = x.stride(0)
+    lda, a_bs, x_bs = hi.stride(1), hi.stride(0), x.stride(0)
     x_f32 = x.dtype == torch.float32
-    # 16-byte loads need every problem's rows of hi/lo and its x to start
-    # on 16-byte boundaries: the base pointers aligned, and the row and
-    # batch strides multiples of 4 floats (hi, lo, a float32 x) or 2
-    # doubles (a float64 x)
-    ptrs = (hi.data_ptr(), lo.data_ptr(), x.data_ptr())
-    vec = int(n % 4 == 0 and lda % 4 == 0 and a_bs % 4 == 0
-              and x_bs % (4 if x_f32 else 2) == 0
-              and all(p % 16 == 0 for p in ptrs))
+    cfg = launch_config(B, m, n, lda, a_bs, x_bs,
+                        (hi.data_ptr(), lo.data_ptr(), x.data_ptr()),
+                        x.element_size())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.scs_ds_matvec(hi.data_ptr(), lo.data_ptr(), x.data_ptr(),
                                 y.data_ptr(),
                                 None if ylo is None else ylo.data_ptr(),
-                                m, n, lda, B, a_bs, x_bs, m, vec, int(x_f32),
-                                stream)
+                                m, n, lda, B, a_bs, x_bs, m, cfg.tpr,
+                                cfg.threads, int(cfg.vec_a), int(cfg.vec_x),
+                                int(x_f32), stream)
     if err != 0:
         msg = lib.scs_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")

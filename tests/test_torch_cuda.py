@@ -159,6 +159,94 @@ def test_ds_matvec_pair_kernel_matches_plain(cuda, shape):
                      <= 2.0 ** -23 * ref.abs() + bound).all())
 
 
+VARIANT_NS = [3, 100, 128, 129, 2048]
+VARIANTS = ["aligned", "x misaligned", "A misaligned", "x float32", "pair",
+            "B = 1"]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("n", VARIANT_NS)
+def test_ds_matvec_variants_match_plain(cuda, n, variant):
+    """Every variant the launcher picks (threads per row from n; A's and
+    x's 16-byte loads each from its own alignment) against the plain
+    version, per lane to 1e-12 of max |A| |x| (K3: the pair's sum; a
+    float32 y: plus its one rounding). x misaligned is a column slice of a
+    wider iterate; A misaligned starts hi and lo one float into their
+    storage."""
+    B, m = (1, 300) if variant == "B = 1" else (3, 37)
+    rng = np.random.RandomState(n + len(variant))
+    full = torch.tensor(rng.randn(B, m, n + 1), device=cuda)
+    if variant == "A misaligned":
+        s = dsmatvec.split_operand(full)
+        split = dsmatvec.DsSplit(s.hi[..., 1:], s.lo[..., 1:])
+    else:
+        split = dsmatvec.split_operand(full[..., :n].contiguous())
+    A = split.hi.double() + split.lo.double()
+    u = torch.tensor(rng.randn(B, n + 3) * 22.0, device=cuda)
+    x = u[:, 1:1 + n] if variant in ("x misaligned", "pair") else \
+        u[:, :n].contiguous()
+    if variant in ("x float32", "pair"):
+        x = x.to(torch.float32) if variant == "x float32" else \
+            u.to(torch.float32)[:, 1:1 + n]
+    cfg = dsmatvec.launch_config(
+        B, m, n, split.hi.stride(1), split.hi.stride(0), x.stride(0),
+        (split.hi.data_ptr(), split.lo.data_ptr(), x.data_ptr()),
+        x.element_size())
+    assert cfg.vec_a == (n % 4 == 0 and variant != "A misaligned")
+    assert cfg.vec_x == (cfg.vec_a and variant not in ("x misaligned",
+                                                       "pair"))
+    bound = 1e-12 * torch.matmul(A.abs(), x.double().abs().unsqueeze(-1)
+                                 ).squeeze(-1)
+    if variant == "pair":
+        hi, lo = dsmatvec.ds_matvec_pair_batched(split, x)
+        rh, rl = dsmatvec.ds_matvec_pair_batched_plain(split, x)
+        got, ref = hi.double() + lo.double(), rh.double() + rl.double()
+    else:
+        got = dsmatvec.ds_matvec_batched(split, x).double()
+        ref = dsmatvec.ds_matvec_batched_plain(split, x).double()
+        if variant == "x float32":
+            bound = bound + 2.0 ** -23 * ref.abs()
+    torch.cuda.synchronize()
+    lane = bound.amax(1, keepdim=True)
+    assert bool(((got - ref).abs() <= lane).all())
+    if variant == "B = 1":      # and K1 on the one problem
+        y = dsmatvec.ds_matvec(dsmatvec.DsSplit(split.hi[0], split.lo[0]),
+                               x[0])
+        assert bool(((y - ref[0]).abs() <= lane[0]).all())
+
+
+def test_ds_matvec_under_graph_capture_matches_eager(cuda):
+    """K1 and K2 captured in a CUDA graph (as the indirect backend's CG
+    blocks run them) and replayed give the eager launches' results
+    bitwise: the same kernel and variant, no allocation or attribute set
+    in the launch. K1's capture counts in `captured`, not `launches`."""
+    rng = np.random.RandomState(5)
+    s1 = dsmatvec.split_operand(torch.tensor(rng.randn(2048, 2048),
+                                             device=cuda))
+    x1 = torch.tensor(rng.randn(2048), device=cuda)
+    s2 = dsmatvec.split_operand(torch.tensor(rng.randn(8, 100, 100),
+                                             device=cuda))
+    u = torch.tensor(rng.randn(8, 201), device=cuda)
+    x2 = u[:, 1:101]
+    eager = (dsmatvec.ds_matvec(s1, x1), dsmatvec.ds_matvec_batched(s2, x2))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    launches, captured = dsmatvec.launches, dsmatvec.captured
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            out = (dsmatvec.ds_matvec(s1, x1),
+                   dsmatvec.ds_matvec_batched(s2, x2))
+    torch.cuda.current_stream().wait_stream(stream)
+    assert dsmatvec.launches == launches
+    assert dsmatvec.captured == captured + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, e in zip(out, eager):
+            assert torch.equal(g, e)
+
+
 def _small_batch(count=6):
     spec = ConeSpec(z=5, l=20, q=(5, 5, 5, 10))
     probs = [gen_planted(spec, n=30, seed=3 + i, density=0.3)
@@ -240,10 +328,17 @@ def test_f32_state_below_the_floor_polishes_on_the_card(cuda):
 
 @pytest.mark.parametrize("shape", [((2, 37, 53), (2, 53, 29)),
                                    ((4, 512, 512), (4, 512, 512)),
-                                   ((1, 1, 70), (1, 70, 130))])
+                                   ((1, 1, 70), (1, 70, 130)),
+                                   ((2, 128, 64), (2, 64, 192)),
+                                   ((3, 37, 1), (3, 1, 29)),
+                                   ((1, 70, 130), (1, 130, 66)),
+                                   ((1, 64, 64), (1, 64, 64)),
+                                   ((7, 33, 45), (7, 45, 50))])
 def test_ds_matmul_kernel_matches_plain(cuda, shape):
     """K4 against its plain version: both sum the same exact float64
-    products in another order, so they agree to 1e-13 of max |A| |B|."""
+    products in another order, so they agree to 1e-13 of max |A| |B|.
+    Shapes: full tiles, ragged m, n and k (k = 1), k and n not multiples
+    of 4 (4-byte staging), B = 1 and B = 7."""
     from scs_tpu_torch.ops import dsmatmul
 
     rng = np.random.RandomState(sum(shape[0]))

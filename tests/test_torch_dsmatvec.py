@@ -183,3 +183,44 @@ def test_batched_operator_and_bad_operands():
     with pytest.raises(ValueError):
         dsmatvec.ds_matvec_batched(
             dsmatvec.split_operand(At.to("meta")), torch.tensor(x).to("meta"))
+
+
+# ---- the kernel's launch configuration, chosen on the host ----
+
+@pytest.mark.parametrize("case", [
+    # (batch, m, n, lda, a_bstride, x_bstride, ptrs, x_itemsize) ->
+    # (tpr, threads, vec_a, vec_x)
+    # few rows: four 16-byte loads a thread, up to 256 threads a row
+    ((1, 8192, 2048, 2048, 0, 0, (0, 256, 512), 8), (128, 256, True, True)),
+    ((1, 2048, 8192, 8192, 0, 0, (0, 256, 512), 8), (256, 256, True, True)),
+    # a small product: one load a thread
+    ((1, 400, 100, 100, 0, 0, (0, 256, 512), 8), (32, 256, True, True)),
+    ((1, 64, 200, 200, 0, 0, (0, 256, 512), 8), (64, 256, True, True)),
+    # many rows: at most 32 threads a row, 4 loads a thread
+    ((1024, 400, 100, 100, 40000, 100, (0, 256, 512), 8),
+     (8, 128, True, True)),
+    ((1024, 100, 400, 400, 40000, 400, (0, 256, 512), 8),
+     (32, 128, True, True)),
+    ((1024, 100, 100, 100, 10000, 100, (0, 256, 512), 4),
+     (8, 64, True, True)),
+    # x a column slice of the (B, l) iterate, l = 501: A keeps its float4
+    ((1024, 400, 100, 100, 40000, 501, (0, 256, 512 + 8 * 5), 8),
+     (8, 128, True, False)),
+    ((1024, 100, 100, 100, 10000, 501, (0, 256, 512 + 4 * 400), 4),
+     (8, 64, True, False)),
+    # a batch of one reads no batch stride
+    ((1, 2048, 2048, 2048, 2048 * 2048, 2061, (0, 256, 512), 8),
+     (128, 256, True, True)),
+    # A's rows unaligned (n = 101 contiguous, or a base one float in)
+    ((3, 37, 101, 101, 3737, 101, (0, 256, 512), 8),
+     (128, 128, False, False)),
+    ((3, 37, 100, 100, 3700, 100, (4, 260, 512), 8),
+     (128, 128, False, False)),
+    ((1, 7, 3, 3, 0, 0, (0, 256, 512), 8), (8, 64, False, False)),
+    ((1, 128, 129, 129, 0, 0, (0, 256, 512), 8), (256, 256, False, False)),
+])
+def test_launch_config_picks_the_variant(case):
+    args, want = case
+    cfg = dsmatvec.launch_config(*args)
+    assert tuple(cfg) == want
+    assert cfg.tpr in dsmatvec._TPRS and cfg.threads % cfg.tpr == 0

@@ -317,13 +317,15 @@ _FORBIDDEN = re.compile(
 def test_port_imports_neither_jax_nor_scs_tpu():
     files = sorted((REPO / "scs_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    files.append(REPO / "tools" / "torch_f32_state_iterations.py")
-    files.append(REPO / "tools" / "torch_indirect_steps.py")
+    files += sorted((REPO / "tools").glob("torch_*.py"))
     assert len(files) > 10
     names = {p.relative_to(REPO).as_posix() for p in files}
     for module in ("linsys/indirect.py", "linsys/matvec.py",
                    "ops/roofline.py", "ops/dsmatmul.py"):
         assert f"scs_tpu_torch/{module}" in names, module
+    for tool in ("torch_f32_state_iterations.py", "torch_indirect_steps.py",
+                 "torch_kernel_rows.py", "torch_batch_trees.py"):
+        assert f"tools/{tool}" in names, tool
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, (path, hits)
