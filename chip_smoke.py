@@ -29,16 +29,33 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. the indirect backend (the default `Settings.linsys`): the large SOCP
      mixed (the card's default) and pure float64, with its CG iterations
      and host reads, against the planted optimum and the direct solve;
-     then the headline batch at B=1024 in the default mode (mixed,
-     float32 state) and mixed with float64 state, every lane held to
-     SCS's termination test;
+     then the first 256 lanes of the headline batch in the default mode
+     (mixed, float32 state) and mixed with float64 state, every lane held
+     to SCS's termination test;
   8. the roofline probe `roofline.measure(n=4096, iters=400, reps=3)`,
      the path of kernel K5, and K4's entry point `ds_matmul`;
-  9. a profile of 100 iterations of the large SOCP, mixed and pure, and
-     mixed through the indirect backend, and of 50 batched steps of the
-     headline batch's float32-state phase (launches, device busy share,
-     the kernels that take the most device time, the operators that take
-     the most host time), and the batched Anderson QR against
+ 10. repeatability: the large SOCP through the indirect backend in pure
+     float64 solved twice here and once in a fresh process (this script
+     with `--repeat-child`), bitwise equal; the 64 easiest lanes of
+     phase 5 solved twice in the default mode, lane counts equal;
+ 11. the mixed-cone configurations (`models/mixed_cones.py`): each of the
+     box, exp and power projections as a CUDA graph against its eager run
+     (float64 and float32, at both configurations' shapes, with times),
+     one mixed-cone projection under set_sync_debug_mode("error"), the
+     cost of the fixed-order segment sums against index_add_; the large
+     mixed-cone program (n=2048, m=8192) direct mixed (K1 counted),
+     direct pure float64, indirect mixed and direct mixed with float32 exp
+     projections (exp_f32=True) against its planted optimum; the
+     mixed-cone headline batch at B=1024 mixed with float32 state, with
+     float64 state and in pure float64, every lane held to SCS's
+     termination test and to the pure float64 run; and BatchWorkspace
+     cold and warm on its 64 easiest lanes;
+  9. last, a profile of 100 iterations of the large SOCP, mixed and pure,
+     and mixed through the indirect backend, of 100 iterations of the
+     large mixed-cone program (direct mixed), and of 50 batched steps of
+     each headline batch's float32-state phase (launches, device busy
+     share, the kernels that take the most device time, the operators
+     that take the most host time), and the batched Anderson QR against
      torch.linalg.qr.
 Phase 2 also holds K2 and K3 against their plain versions at the batched
 shapes, and K4 and K5 against theirs.
@@ -47,8 +64,10 @@ The second-to-last line is a JSON object with one entry per kernel (K1-K5),
 the last line {"ok": true, "device": {...}}.
 """
 
+import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -58,9 +77,15 @@ import numpy as np
 import torch
 
 from scs_tpu_torch import Settings, Workspace, accel
+from scs_tpu_torch.cones import box as box_cone
+from scs_tpu_torch.cones import exp as exp_cone
+from scs_tpu_torch.cones import graphs, project, segments, soc
+from scs_tpu_torch.cones import power as power_cone
 from scs_tpu_torch.demo_socp import make_spec
 from scs_tpu_torch.linsys import direct, indirect
 from scs_tpu_torch.models import gen_planted
+from scs_tpu_torch.models import mixed_cones
+from scs_tpu_torch.types import ConeData
 from scs_tpu_torch.ops import _build, dsmatmul, dsmatvec, roofline
 from scs_tpu_torch.parallel import (BatchWorkspace,
                                     make_chunked_batch_solver,
@@ -317,23 +342,40 @@ def read_rowsum_case(m: int, n: int, seed: int, split: bool) -> dict:
     }
 
 
-def headline_batch(spec, B: int, seed0: int):
-    """B planted problems of the headline family, stacked on the card."""
-    probs = [gen_planted(spec, n=100, seed=seed0 + i, density=0.1)
-             for i in range(B)]
+def headline_batch(spec, B: int, seed0: int, bounds: bool = False):
+    """B planted problems of the headline family, stacked on the card;
+    `bounds`: the mixed-cone family (`mixed_cones.gen_mixed`), whose box
+    bounds are appended as (bu, bl) (B, bsize - 1)."""
+    if bounds:
+        probs = [mixed_cones.gen_mixed(spec, 100, seed0 + i, 0.1)
+                 for i in range(B)]
+    else:
+        probs = [gen_planted(spec, n=100, seed=seed0 + i, density=0.1)
+                 for i in range(B)]
     A, b, c = (torch.stack([getattr(p.problem, k) for p in probs]).cuda()
                for k in ("A", "b", "c"))
-    return A, b, c, np.asarray([p.opt for p in probs])
+    out = (A, b, c, np.asarray([p.opt for p in probs]))
+    if bounds:
+        out += tuple(torch.stack([getattr(p.cone_data, k) for p in probs])
+                     .cuda() for k in ("bu", "bl"))
+    return out
 
 
-def verify_termination(batch, res, stg, label) -> None:
+def lanes_of(batch, idx):
+    """The lanes `idx` (a numpy index) of a batch from headline_batch."""
+    rows = torch.as_tensor(idx, device="cuda")
+    return tuple(t[rows] if torch.is_tensor(t) else t[idx] for t in batch)
+
+
+def termination_failures(batch, res, stg) -> dict:
     """SCS's termination test for every lane, recomputed in float64 from
     the original A, b, c and the returned x, y, s (the reference test
     suite's verify_solution_correct, test/problem_utils.h:107-249):
     primal and dual residuals and the gap within eps_abs + eps_rel times
     their scale, with 1 % slack for the round-off between this recomputation
-    and the solver's own check."""
-    A, b, c, _ = batch
+    and the solver's own check. Returns {test: numpy mask of the lanes
+    that fail it}."""
+    A, b, c = batch[:3]
     x, y, s = res.x, res.y, res.s
     ax = torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
     aty = torch.matmul(A.transpose(1, 2), y.unsqueeze(-1)).squeeze(-1)
@@ -348,19 +390,24 @@ def verify_termination(batch, res, stg, label) -> None:
         "res_dual": (inf(aty + c), torch.maximum(inf(c), inf(aty))),
         "gap": ((ctx + bty).abs(), torch.maximum(ctx.abs(), bty.abs())),
     }
-    for name, (val, scl) in tests.items():
-        lim = 1.01 * (stg.eps_abs + stg.eps_rel * scl)
-        bad = int((~(val <= lim)).sum())
-        check(bad == 0, f"{label}: {bad} lanes fail SCS's {name} test "
-              f"recomputed from the original data")
+    return {name: (~(val <= 1.01 * (stg.eps_abs + stg.eps_rel * scl)))
+            .cpu().numpy() for name, (val, scl) in tests.items()}
+
+
+def verify_termination(batch, res, stg, label) -> None:
+    """Every lane passes SCS's termination test (termination_failures)."""
+    for name, bad in termination_failures(batch, res, stg).items():
+        check(not bad.any(), f"{label}: {int(bad.sum())} lanes fail SCS's "
+              f"{name} test recomputed from the original data")
 
 
 def solve_batch(spec, batch, stg, label, tol=1e-3):
     """The batch through make_chunked_batch_solver on the card, with the
     K2 and K3 launch counts read around the solve. Returns the numbers."""
-    A, b, c, opts = batch
+    A, b, c, opts = batch[:4]
     B = A.shape[0]
     bnd = torch.zeros(B, 0, dtype=torch.float64, device="cuda")
+    bu, bl = batch[4:] if len(batch) > 4 else (bnd, bnd)
     solver = make_chunked_batch_solver(spec, stg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -369,8 +416,9 @@ def solve_batch(spec, batch, stg, label, tol=1e-3):
     dsmatvec.pair_launches = 0
     indirect.host_reads = 0
     indirect.refine_passes = 0
+    graphs.replays = 0
     t0 = time.perf_counter()
-    res = solver(A, b, c, bnd, bnd)
+    res = solver(A, b, c, bu, bl)
     status = res.status.cpu().numpy()
     wall = time.perf_counter() - t0
     launches = dsmatvec.batched_launches
@@ -403,7 +451,8 @@ def solve_batch(spec, batch, stg, label, tol=1e-3):
           f"bucket, alive at end, steps, s) {levels}, "
           f"{solver.machinery.polished} lanes polished, float32 state "
           f"{solver.machinery.f32_state}, K2 launches {launches}, K3 "
-          f"launches {pair}, max pobj rel err {err.max():.2e}, max res_pri "
+          f"launches {pair}, cone graph replays {graphs.replays}, max pobj "
+          f"rel err {err.max():.2e}, max res_pri "
           f"{float(res.res_pri.max()):.2e}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{cg_note}")
     check(bool(np.all(status == 1)),
@@ -419,14 +468,14 @@ def solve_batch(spec, batch, stg, label, tol=1e-3):
             "cg": int(res.tot_cg_its.sum())}
 
 
-def warm_batch(spec, batch):
+def warm_batch(spec, batch, label: str = ""):
     """BatchWorkspace on the card in its default mode (mixed, fast phase
     with float32 state): cold solve, b shifted by 1 %, warm solve (the
     examples/mpc_warm_batch.py pattern), the K3 launches of the
     float32-state phase counted around the two solves."""
-    A, b, c, _ = batch
+    A, b, c = batch[:3]
     ws = BatchWorkspace(spec, Settings(linsys="direct", chunk_iters=250),
-                        A, None, b, c)
+                        A, None, b, c, *batch[4:])
     check(ws.machinery.f32_state, "BatchWorkspace: the default mixed solve "
           "on the card does not run float32 state")
     torch.cuda.synchronize()
@@ -440,7 +489,7 @@ def warm_batch(spec, batch):
     warm_it = warm.iters.cpu().numpy()
     t2 = time.perf_counter()
     pair = dsmatvec.pair_launches
-    print(f"BatchWorkspace B={A.shape[0]}, float32 state: cold "
+    print(f"BatchWorkspace B={A.shape[0]}{label}, float32 state: cold "
           f"{int(cold_it.sum())} lane-iterations (max {cold_it.max()}) in "
           f"{t1 - t0:.3f} s, warm after b *= 1.01 {int(warm_it.sum())} "
           f"lane-iterations (max {warm_it.max()}) in {t2 - t1:.3f} s, K3 "
@@ -497,7 +546,8 @@ def solve_planted(p, spec, label):
             "pobj64": info64.pobj}
 
 
-def solve_indirect(p, spec, label, direct_pobj: float):
+def solve_indirect(p, spec, label, direct_pobj: float,
+                   modes=("mixed", "pure f64")):
     """The planted problem through the indirect backend on the card, mixed
     (the default there) and pure float64, each with its counts set to 0
     just before: status, ADMM and CG iterations, ms per iteration, K1
@@ -506,6 +556,8 @@ def solve_indirect(p, spec, label, direct_pobj: float):
     out = {}
     for mode, stg in (("mixed", Settings()),
                       ("pure f64", Settings(mixed_precision=False))):
+        if mode not in modes:
+            continue
         torch.cuda.synchronize()
         dsmatvec.launches = 0
         indirect.host_reads = 0
@@ -545,7 +597,7 @@ def solve_indirect(p, spec, label, direct_pobj: float):
           out["mixed"]["iter"], f"{label} indirect: the default solve on the "
           f"card is not mixed or launched K1 {out['mixed']['launches']} "
           f"times in {out['mixed']['iter']} iterations")
-    check(out["pure f64"]["launches"] == 0,
+    check(out.get("pure f64", {"launches": 0})["launches"] == 0,
           f"{label} indirect pure f64 launched K1")
     return out
 
@@ -607,17 +659,17 @@ def profile_iterations(p, spec, mixed: bool, iters: int, label: str,
               f"{k.count / it:6.1f} calls/iteration  {k.key[:80]}")
 
 
-def profile_batched(spec, batch, steps: int) -> None:
+def profile_batched(spec, batch, steps: int, label: str = "") -> None:
     """`profile_iterations` for `steps` lockstep steps of the batched
     solver's fast phase as the default mixed solve runs it on the card:
     float32 state, floored targets."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    A, b, c, _ = batch
+    A, b, c = batch[:3]
     stg = Settings(linsys="direct")
     init_fn, _, _ = make_solver_parts(spec, stg)
-    data, st = init_fn(A, None, b, c)
+    data, st = init_fn(A, None, b, c, *batch[4:])
     fdata, st0 = batch_mod.f32_view(batch_mod._floored_data(data), st,
                                     direct)
     it32 = BatchedIteration(spec, stg, True, f32_state=True)
@@ -639,7 +691,7 @@ def profile_batched(spec, batch, steps: int) -> None:
                         "cuLaunchKernel", "cuLaunchKernelEx"):
             launches += 1
     ran = int(st.iter.max())
-    label = f"batch B={A.shape[0]} mixed float32-state profile"
+    label = f"batch{label} B={A.shape[0]} mixed float32-state profile"
     print(f"{label}, {ran} steps from a cold start: wall "
           f"{wall_ms / ran:.3f} ms/step under the profiler, "
           f"{launches / ran:.1f} CUDA launches/step")
@@ -685,6 +737,229 @@ def anderson_qr_times(B: int, L: int, mem: int) -> None:
     print(f"Anderson QR ({B}, {L}, {mem}) float32: batched Householder "
           f"{ours:.4f} ms, torch.linalg.qr + Q'c {median_ms(lib):.4f} ms, "
           f"max |Q'c difference| {diff:.2e}")
+
+
+# ---- the box, exp and power cones (graphs, host reads, repeatability) ----
+
+def _wall_ms(fn, reps: int) -> float:
+    """Host wall time of one call of fn, the card synchronized around
+    `reps` calls (what a solver's iteration waits for)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def cone_inputs(spec, lead: tuple, dtype, seed: int):
+    """Random arguments of the box, exp and power projections of `spec`
+    with leading shape `lead` (() for one problem, (B,) for a batch), on
+    the card: {family: (function, args)}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, lo=None):
+        t = torch.randn((*lead, *shape), generator=gen, dtype=torch.float64,
+                        device="cuda")
+        return (t if lo is None else lo + t.abs()).to(dtype)
+
+    nb = spec.bsize - 1
+    bl = -(0.5 + rnd(nb).abs())
+    bu = 0.5 + rnd(nb).abs()
+    bu[..., ::10] = math.inf
+    n_exp = spec.ep + spec.ed
+    mask = torch.arange(n_exp, device="cuda") < spec.ep
+    a = torch.as_tensor(spec.p, dtype=dtype, device="cuda")
+    return {
+        "box": (box_cone.proj_box_cone,
+                (2.0 * rnd(spec.bsize), bl, bu, rnd(lo=0.5),
+                 rnd(spec.bsize, lo=0.01))),
+        "exp": (exp_cone.proj_exp_batch, (2.0 * rnd(n_exp, 3), mask)),
+        "power": (power_cone.proj_power_batch, (2.0 * rnd(spec.psize, 3), a)),
+    }
+
+
+def cone_graph_rows(spec, lead: tuple, label: str) -> list:
+    """Each cone family of `spec` as a CUDA graph (`graphs.run`) against
+    its eager run on the same card tensors, in float64 and float32: the
+    outputs agree to 1e-15 relative in float64 and 1e-6 in float32 (the
+    graph replays the same kernels; anything but bitwise equality is a
+    fault). Times: host wall ms per call of each, the card synchronized
+    (the eager run launches every step of every loop)."""
+    rows = []
+    for dtype, tol in ((torch.float64, 1e-15), (torch.float32, 1e-6)):
+        for fam, (fn, args) in cone_inputs(spec, lead, dtype, 60).items():
+            eager = fn(*args)
+            graph = graphs.run(fn, args)
+            eager = eager if torch.is_tensor(eager) else eager[0]
+            graph = graph if torch.is_tensor(graph) else graph[0]
+            diff = float((graph - eager).abs().max()
+                         / eager.abs().max().clamp_min(1.0))
+            row = {"family": fam, "shape": list(args[0].shape),
+                   "dtype": str(dtype).split(".")[-1], "rel_diff": diff,
+                   "graph_ms": _wall_ms(lambda: graphs.run(fn, args), 50),
+                   "eager_ms": _wall_ms(lambda: fn(*args), 3)}
+            print(f"cone graph {label} {fam} {row['shape']} {row['dtype']}: "
+                  f"graph {row['graph_ms']:.4f} ms, eager "
+                  f"{row['eager_ms']:.3f} ms per call (host wall), "
+                  f"max |graph - eager| / max(1, |eager|) {diff:.1e}")
+            check(math.isfinite(diff) and diff <= tol,
+                  f"cone graph {label} {fam} {row['dtype']}: graph and eager "
+                  f"differ by {diff:.1e} > {tol:.0e}")
+            rows.append(row)
+    return rows
+
+
+def sync_free_projection(spec, batch) -> None:
+    """One proj_dual_cone_batched on the mixed-cone layout (B lanes, float32
+    exp/power as on the fast phase) under set_sync_debug_mode("error"):
+    any host read of the card in the projection raises. A first call
+    captures the graphs and caches the layouts."""
+    A, b = batch[0], batch[1]
+    B, m = b.shape
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    x = torch.randn(B, m, generator=gen, dtype=torch.float64, device="cuda")
+    r = 0.1 + torch.rand(B, m, generator=gen, dtype=torch.float64,
+                         device="cuda")
+    cd = ConeData(bu=batch[4], bl=batch[5])
+    tw = torch.ones(B, dtype=torch.float64, device="cuda")
+    ref, _ = project.proj_dual_cone_batched(x, spec, cd, tw, r, exp_f32=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, t_new = project.proj_dual_cone_batched(x, spec, cd, tw, r,
+                                                    exp_f32=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    same = bool(torch.equal(out, ref))
+    print(f"proj_dual_cone_batched ({B}, {m}) mixed cones under "
+          f"set_sync_debug_mode('error'): no host read, output equal to the "
+          f"first call's: {same}")
+    check(same and bool(torch.isfinite(out).all()),
+          "sync-free projection differs from the first call or is not finite")
+
+
+def segment_sum_cost(spec_big, head) -> dict:
+    """Device time of the SOC tail norms' segment sum in a fixed order
+    (segments.segment_sum, the port's) against the scatter-add it
+    replaced (index_add_, atomics in no fixed order), at the large SOCP's
+    cone list (one problem) and the headline batch's (B = 1024), with
+    how often an iteration or a step runs it: the determinism fix's
+    cost."""
+    out = {}
+    for label, sizes, lead in (("large SOCP", spec_big.q, ()),
+                               ("headline batch", head.q, (1024,))):
+        sizes = tuple(sz for sz in sizes if sz > 0)
+        x = torch.randn((*lead, sum(sizes)), dtype=torch.float64,
+                        device="cuda")
+        seg = torch.as_tensor(soc._soc_layout_np(sizes)[0], device="cuda")
+        dim = len(lead)
+
+        def scatter():
+            return torch.zeros(*lead, len(sizes), dtype=x.dtype,
+                               device="cuda").index_add_(dim, seg, x)
+
+        fixed = median_ms(lambda: segments.segment_sum(x, sizes))
+        old = median_ms(scatter)
+        err = float((segments.segment_sum(x, sizes) - scatter()).abs().max())
+        print(f"segment sum, {label} cones ({len(sizes)} cones, "
+              f"{sum(sizes)} rows{', B = 1024' if lead else ''}): fixed "
+              f"order {fixed:.4f} ms, index_add_ {old:.4f} ms (device time; "
+              f"one a projection), max difference {err:.1e}")
+        out[label] = (fixed, old)
+    return out
+
+
+def _digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _repeat_solve():
+    """The large SOCP through the indirect backend in pure float64:
+    (iterations, CG iterations, digest of x, y, s)."""
+    spec = make_spec(2048, 0.1, np.random.RandomState(7))
+    p = gen_planted(spec, n=2048, seed=7, density=0.3)
+    ws = Workspace(p.problem, spec, p.cone_data,
+                   Settings(mixed_precision=False))
+    sol, info = ws.solve()
+    return {"iter": info.iter, "cg": ws.tot_cg_its,
+            "digest": _digest(sol.x, sol.y, sol.s), "status": info.status}
+
+
+def repeat_check(spec, batch_easy) -> dict:
+    """Run-to-run repeatability on the card (ROADMAP section 3 A): the
+    large SOCP, indirect, pure float64, solved twice in this process and
+    once in a fresh one, must give equal iteration and CG counts and
+    bitwise-equal x, y and s; the 64-lane headline batch in its default
+    mode (mixed, float32 state) solved twice must give every lane the same
+    iteration count."""
+    runs = [_repeat_solve() for _ in range(2)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--repeat-child"],
+        capture_output=True, text=True, timeout=600, cwd=here)
+    check(child.returncode == 0,
+          f"repeat check: the fresh process failed: {child.stderr[-2000:]}")
+    runs.append(json.loads(child.stdout.strip().splitlines()[-1]))
+    for i, r in enumerate(runs):
+        print(f"repeat check, large SOCP indirect pure f64, "
+              f"{'fresh process' if i == 2 else f'run {i + 1}'}: "
+              f"{r['status']}, {r['iter']} iterations, {r['cg']} CG "
+              f"iterations, x/y/s sha256 {r['digest'][:16]}")
+    check(all(r == runs[0] for r in runs[1:]),
+          "repeat check: the large SOCP's solves differ run to run")
+    stg = Settings(linsys="direct", chunk_iters=250)
+    bnd = torch.zeros(batch_easy[0].shape[0], 0, dtype=torch.float64,
+                      device="cuda")
+    lanes = [make_chunked_batch_solver(spec, stg)(
+        *batch_easy[:3], bnd, bnd).iters.cpu().numpy() for _ in range(2)]
+    print(f"repeat check, headline batch B={len(lanes[0])} mixed float32 "
+          f"state: lane-iterations {int(lanes[0].sum())} and "
+          f"{int(lanes[1].sum())}, lanes with equal counts "
+          f"{int((lanes[0] == lanes[1]).sum())}")
+    check(bool(np.array_equal(lanes[0], lanes[1])),
+          "repeat check: the batch's per-lane iteration counts differ")
+    return {"large": runs[0], "batch_lane_iterations": int(lanes[0].sum())}
+
+
+def mixed_cone_large(p, spec) -> dict:
+    """The large mixed-cone program through Workspace: direct mixed (K1
+    counted around it), direct pure float64, indirect mixed, and direct
+    mixed with the exp cones in float32 on the fast phase (`exp_f32=True`,
+    the JAX package's precision there; ROADMAP R4); each held against the
+    planted optimum, with its cone graph replays."""
+    out = {}
+    graphs.replays = 0
+    big = solve_planted(p, spec, "large mixed cones")
+    out["direct"] = big
+    out["replays_direct"] = graphs.replays
+    check(big["launches"] > 0, "large mixed cones: no K1 launch")
+    ind = solve_indirect(p, spec, "large mixed cones", big["pobj64"],
+                         modes=("mixed",))
+    out["indirect"] = ind["mixed"]
+    ws = Workspace(p.problem, spec, p.cone_data,
+                   Settings(linsys="direct", exp_f32=True))
+    check(ws._iteration.exp32 and ws._repolish,
+          "large mixed cones exp_f32: the fast phase does not project exp "
+          "in float32, or no finishing re-projection")
+    sol, info = ws.solve()
+    err = abs(info.pobj - p.opt) / (1 + abs(p.opt))
+    agree = abs(info.pobj - big["pobj64"]) / (1 + abs(big["pobj64"]))
+    print(f"large mixed cones mixed, exp float32 (exp_f32=True): "
+          f"{info.status}, {info.iter} iterations, solve "
+          f"{info.solve_time:.1f} ms, {info.solve_time / max(info.iter, 1):.3f}"
+          f" ms/iteration, pobj {info.pobj!r} (planted rel err {err:.2e}; "
+          f"pure f64 rel diff {agree:.2e})")
+    check(info.status == "solved" and err <= 1e-3 and agree <= 1e-3
+          and bool(np.all(np.isfinite(sol.x))),
+          f"large mixed cones exp_f32: {info.status}, objective error "
+          f"{err:.2e}, against pure f64 {agree:.2e}")
+    out["exp_f32"] = {"iter": info.iter, "solve_ms": info.solve_time}
+    return out
 
 
 # phase 2's rows; tools/torch_kernel_rows.py times the same rows for two
@@ -761,6 +1036,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--repeat-child"]:
+        # the repeat check's fresh process (phase 10)
+        print(json.dumps(_repeat_solve()))
+        return 0
     t_start = time.perf_counter()
     card = card_line()
     print(card)
@@ -912,22 +1191,30 @@ def main() -> int:
           f"launches for {fast} fast and {pol} polish steps")
 
     # 7. the indirect backend, the default linsys: the large SOCP mixed
-    # and pure (K1 counted around each), then the headline batch in the
-    # default mode (mixed, float32 state; K2 counted around it). Its
-    # objective gate is the float32-state direct batch's (5e-3).
+    # and pure (K1 counted around each), then the first 256 lanes of the
+    # headline batch in the default mode (mixed, float32 state; K2 counted
+    # around it) and mixed with float64 state. The float32-state run's
+    # objective gate is the float32-state direct batch's (5e-3). Both
+    # batches were B = 1024 until the mixed-cone phases below took their
+    # time (tools/torch_batch_trees.py runs the full batch).
     solve_indirect(big_p, spec, "large SOCP", big["pobj64"])
-    ind_b = solve_batch(head, batch, Settings(chunk_iters=250),
-                        "headline batch indirect (default: mixed, float32 "
-                        "state)", tol=5e-3)
+    head256 = tuple(t[:256] for t in batch)
+    ind_b = solve_batch(head, head256, Settings(chunk_iters=250),
+                        "headline batch B=256 indirect (default: mixed, "
+                        "float32 state)", tol=5e-3)
     check(ind_b["f32_state"], "headline batch indirect: the default mixed "
           "solve did not take the float32-state fast phase")
     check(ind_b["launches"] >= 2 * ind_b["steps"] and ind_b["pair"] == 0,
           f"headline batch indirect: {ind_b['launches']} K2 launches < 2 x "
           f"{ind_b['steps']} steps, or K3 launched")
     check(ind_b["cg"] > 0, "headline batch indirect: no CG iteration")
-    ind64_b = solve_batch(head, batch, Settings(chunk_iters=250,
-                                                fast_f32=False),
-                          "headline batch indirect mixed float64 state")
+    ind64_b = solve_batch(head, head256,
+                          Settings(chunk_iters=250, fast_f32=False),
+                          "headline batch B=256 indirect mixed float64 "
+                          "state")
+    check(not ind64_b["f32_state"] and ind64_b["cg"] > 0,
+          "headline batch indirect, float64 state: float32 state, or no CG "
+          "iteration")
     check(ind64_b["launches"] >= 2 * ind64_b["steps"],
           f"headline batch indirect, float64 state: {ind64_b['launches']} "
           f"K2 launches < 2 x {ind64_b['steps']} steps")
@@ -962,6 +1249,78 @@ def main() -> int:
     check(k4_launches == 1 and rel <= 1e-13,
           f"ds_matmul: {k4_launches} launches, relative error {rel:.3e}")
 
+    # 10. repeatability (ROADMAP section 3 A): the indirect pure float64
+    # large SOCP twice here and once in a fresh process, bitwise; the 64
+    # easiest lanes of phase 5 twice in the default mode, lane by lane
+    repeat = repeat_check(head, lanes_of(batch, easy))
+
+    # 11. the mixed-cone configurations: box, exp and power cones beside
+    # zero, nonnegative and SOC rows. First each cone family as a CUDA
+    # graph against its eager run at both configurations' shapes, one
+    # mixed-cone projection with no host read, and the determinism fix's
+    # cost; then the large program (direct mixed with K1 counted, direct
+    # pure float64, indirect mixed, direct mixed with exp_f32=True) and
+    # the batch of 1024 (mixed with float32 state, float64 state, pure
+    # float64), BatchWorkspace on 64 lanes
+    mspec_big = mixed_cones.large_mixed_spec()
+    mspec = mixed_cones.headline_mixed_spec()
+    cone_rows = (cone_graph_rows(mspec_big, (), "large")
+                 + cone_graph_rows(mspec, (1024,), "batch B=1024"))
+    mbatch = headline_batch(mspec, 1024, 1000, bounds=True)
+    sync_free_projection(mspec, mbatch)
+    seg_cost = segment_sum_cost(spec, head)
+    mbig_p = mixed_cones.gen_mixed(mspec_big, 2048, 7, 0.3)
+    mbig = mixed_cone_large(mbig_p, mspec_big)
+    mixed_mb = solve_batch(mspec, mbatch,
+                           Settings(linsys="direct", chunk_iters=250),
+                           "mixed-cone batch mixed", tol=5e-3)
+    fast = mixed_mb["by_phase"].get("fast", 0)
+    check(mixed_mb["f32_state"] and mixed_mb["pair"] >= 2 * fast > 0,
+          f"mixed-cone batch: float32 state {mixed_mb['f32_state']}, "
+          f"{mixed_mb['pair']} K3 launches for {fast} fast steps")
+    check(mixed_mb["launches"] >= 2 * mixed_mb["steps"],
+          f"mixed-cone batch: {mixed_mb['launches']} K2 launches < 2 x "
+          f"{mixed_mb['steps']} steps")
+    # objectives: every lane passes SCS's termination test at eps 1e-4
+    # (verify_termination). The pure float64 solve itself lands 1.54e-3
+    # (1 + |opt|) from the planted optimum on seed 1973 (6025 iterations)
+    # on an H100: the distance SCS's eps leaves on this family's lane, so
+    # the float64 runs' gate is 2e-3 (float32 state: 5e-3, its lanes up
+    # to 1.73e-3 away, as phase 5). Against the pure float64 run, float64
+    # state agrees to 1.2e-7 with every lane's iteration count equal,
+    # float32 exp projections (exp_f32=True) differ by 1.9e-4 and leave 5
+    # lanes failing the gap test (tools/torch_mixed_cone_gates.py,
+    # PERF.md), so that gate is 1e-5; float32 state keeps phase 5's 5e-3
+    mixed64_mb = solve_batch(mspec, mbatch,
+                             Settings(linsys="direct", chunk_iters=250,
+                                      fast_f32=False),
+                             "mixed-cone batch mixed float64 state",
+                             tol=2e-3)
+    check(mixed64_mb["launches"] >= 4 * mixed64_mb["steps"]
+          and mixed64_mb["pair"] == 0,
+          f"mixed-cone batch, float64 state: {mixed64_mb['launches']} K2 "
+          f"launches < 4 x {mixed64_mb['steps']} steps, or K3 launched")
+    pure_mb = solve_batch(mspec, mbatch,
+                          Settings(linsys="direct", chunk_iters=250,
+                                   mixed_precision=False),
+                          "mixed-cone batch pure f64", tol=2e-3)
+    for label, run, tol in (("mixed", mixed_mb, 5e-3),
+                            ("mixed float64 state", mixed64_mb, 1e-5)):
+        check(bool(np.array_equal(pure_mb["status"], run["status"])),
+              f"mixed-cone batch: pure and {label} statuses differ")
+        agree = np.abs(run["pobj"] - pure_mb["pobj"]) / (
+            1 + np.abs(pure_mb["pobj"]))
+        print(f"mixed-cone batch: {label} against pure f64, pobj rel diff "
+              f"max {agree.max():.3e}, lanes with equal iterations "
+              f"{int((run['iters'] == pure_mb['iters']).sum())}")
+        check(bool(np.all(agree <= tol)),
+              f"mixed-cone batch: {label} vs pure pobj differ by "
+              f"{agree.max():.2e}, above {tol:.0e}")
+    measy = np.sort(np.argsort(mixed_mb["iters"], kind="stable")[:64])
+    warm_batch(mspec, lanes_of(mbatch, measy), " mixed cones")
+    print(f"{card}, peak device memory of the last batch "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     # 9. where the time of an iteration goes, mixed and pure, on the large
     # SOCP (100 iterations each): first unprofiled, in turns, then under
     # the profiler. Last: the profiler's tracing may slow launches after
@@ -978,6 +1337,9 @@ def main() -> int:
     profile_iterations(big_p, spec, True, 100, "large SOCP indirect mixed",
                        linsys="indirect")
     profile_batched(head, batch, 50)
+    profile_iterations(mbig_p, mspec_big, True, 100,
+                       "large mixed cones mixed")
+    profile_batched(mspec, mbatch, 50, " mixed cones")
     anderson_qr_times(1024, 501 + 10, 10)
 
     main_case = cases[0]

@@ -20,12 +20,14 @@ import numpy as np
 import torch
 
 from . import accel, config
+from .cones.box import scale_box_bounds
 from .cones.project import require_supported
 from .equilibrate import (equilibrate, identity_scaling, normalize_b_c,
                           normalize_xys, unnormalize_xys)
 from .linsys import Mats, get_backend, prepare_operands, resolve_mixed
 from .solver import (Iteration, LoopState, ProblemData, Residuals,
-                     pack_warm_v, populate_residuals, set_diag_r)
+                     moreau_repolish, pack_warm_v, populate_residuals,
+                     set_diag_r)
 from .types import ConeData, ConeSpec, Info, Problem, Settings, Solution
 from .validation import ValidationError, validate
 
@@ -102,6 +104,11 @@ class Workspace:
 
         if stg.normalize:
             A_n, P_n, scal = equilibrate(A, P, spec)
+            if spec.bsize > 1:
+                box = slice(spec.z + spec.l, spec.z + spec.l + spec.bsize)
+                bu_s, bl_s = scale_box_bounds(cone_data.bu, cone_data.bl,
+                                              scal.D[box])
+                cone_data = ConeData(bu=bu_s, bl=bl_s)
         else:
             A_n, P_n = A, P
             scal = identity_scaling(m, n, dtype, dev)
@@ -128,6 +135,16 @@ class Workspace:
             mixed=self._mixed)
         self._check_convexity()
         self._iteration = Iteration(spec, stg, self._mixed)
+        # the polish phase of a mixed solve keeps the mixed linear solver
+        # and projects every cone in float64 (the JAX package's
+        # _polish_stg)
+        self._polish_iteration = Iteration(spec, dataclasses.replace(
+            stg, mixed_precision=True, cone_f32=False, exp_f32=None),
+            True) if self._mixed else None
+        # one float64 Moreau re-projection at the finish (the JAX
+        # package's condition: mixed, with exp or power cones) restores
+        # exactness where exp projected in float32 (Settings.exp_f32)
+        self._repolish = self._mixed and bool(spec.ep or spec.ed or spec.p)
         # CG iterations of the last solve (indirect backend; the direct
         # backend counts its refinement passes)
         self.tot_cg_its = 0
@@ -207,6 +224,7 @@ class Workspace:
             u=zero_l, u_t=zero_l, v=v, v_prev=v, rsk=zero_l,
             diag_r=self.diag_r, g=g, derived=self.derived,
             scale=torch.tensor(self.scale, dtype=dtype, device=dev),
+            box_t_warm=torch.ones((), dtype=dtype, device=dev),
             res=Residuals.zeros(dtype, dev),
             sum_log_scale_factor=zf, n_log_scale_factor=0,
             last_scale_update_iter=0, scale_updates=0,
@@ -250,11 +268,12 @@ class Workspace:
         else:
             phases = [self.data]
 
+        iteration = self._iteration
         try:
             for phase_idx, data in enumerate(phases):
                 if phase_idx > 0:
-                    st, proceed = self._enter_polish_phase(st)
-                    if not proceed:
+                    st, iteration = self._enter_polish_phase(st)
+                    if iteration is None:
                         break
                 while (st.status == config.UNFINISHED
                        and st.iter < stg.max_iters):
@@ -263,7 +282,7 @@ class Workspace:
                         time_limit_reached = True
                         break
                     cap = min(st.iter + chunk, stg.max_iters)
-                    st = self._iteration.run(data, st, cap)
+                    st = iteration.run(data, st, cap)
                 if time_limit_reached:
                     break
         except KeyboardInterrupt:
@@ -280,11 +299,12 @@ class Workspace:
         self.tot_cg_its = int(st.tot_cg_its)
         return solution, info
 
-    def _enter_polish_phase(self, st: LoopState) -> tuple[LoopState, bool]:
+    def _enter_polish_phase(self, st: LoopState):
         """Decide whether the polish phase must run after the fast phase
         and, if so, re-derive the factor and the g cache from the fast
         phase's state. The polish keeps the mixed linear solver, so the
-        factor keeps its structure. Returns (state, proceed)."""
+        factor keeps its structure. Returns (state, the polish phase's
+        Iteration, or None where no polish runs)."""
         stg = self.stg
         floor = config.MIXED_FAST_FLOOR
         needs = False
@@ -296,17 +316,22 @@ class Workspace:
             elif st.status == config.UNFINISHED:
                 needs = True
         if not needs:
-            return st, False
+            return st, None
+        iteration = self._polish_iteration
         derived = self.backend.derive(self._mats(), st.diag_r, st.scale,
                                       mixed=True)
-        g = self._iteration.update_work_cache(self.data, st.diag_r, derived)
+        g = iteration.update_work_cache(self.data, st.diag_r, derived)
         return dataclasses.replace(st, derived=derived, g=g,
-                                   status=config.UNFINISHED), True
+                                   status=config.UNFINISHED), iteration
 
     def _finalize(self, st: LoopState, time_limit_reached: bool,
                   interrupted: bool = False) -> tuple[Solution, Info]:
-        """Extract the solution or certificate (finalize, scs.c:847-966)."""
+        """Extract the solution or certificate (finalize, scs.c:847-966),
+        after the finishing float64 re-projection where the fast phase
+        projected exp/power cones in float32."""
         n, m = self.n, self.m
+        if self._repolish and not interrupted:
+            st = moreau_repolish(self.data, self.spec, st)
         r = populate_residuals(self.data, self.spec, st.u, st.rsk, st.iter)
         x = st.u[:n]
         y = st.u[n:n + m]

@@ -1,7 +1,10 @@
 """Second-order cone projection, batched over equal-size cones and
 segment-vectorized over heterogeneous cone lists.
 
-Counterpart of `scs_tpu/cones/soc.py` (SCS: src/cones.c:1250-1279).
+Counterpart of `scs_tpu/cones/soc.py` (SCS: src/cones.c:1250-1279). The
+tail norms of a mixed-size list are segment sums in a fixed order
+(`segments.segment_sum`), so a projection gives the same bits on every
+run.
 Closed form: given x = (t, z), with s = ||z||_2:
   s <= t   -> x            (inside cone)
   s <= -t  -> 0            (in polar cone)
@@ -12,6 +15,8 @@ import functools
 
 import numpy as np
 import torch
+
+from .segments import segment_sum
 
 
 def proj_soc_batch(x: torch.Tensor) -> torch.Tensor:
@@ -30,7 +35,7 @@ def proj_soc_batch(x: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=256)
 def _soc_layout_np(sizes: tuple[int, ...]):
-    """Per-row segment ids, head mask and head positions of a cone list."""
+    """Per-row cone ids, head mask and head positions of a cone list."""
     seg = np.concatenate([np.full(sz, k) for k, sz in enumerate(sizes)])
     heads = np.cumsum([0] + list(sizes[:-1]))
     is_head = np.zeros(seg.shape[0], bool)
@@ -53,8 +58,7 @@ def proj_soc_hetero(x: torch.Tensor, sizes: tuple[int, ...]) -> torch.Tensor:
     seg, is_head, heads = _soc_layout(sizes, x.device)
     zero = torch.zeros_like(x)
     z = torch.where(is_head, zero, x)
-    s = torch.sqrt(torch.zeros(len(sizes), dtype=x.dtype, device=x.device)
-                   .index_add_(0, seg, z * z))
+    s = torch.sqrt(segment_sum(z * z, sizes))
     t = x[heads]
     inside = s <= t
     below = s <= -t
@@ -72,8 +76,7 @@ def proj_soc_hetero_batched(x: torch.Tensor,
     seg, is_head, heads = _soc_layout(sizes, x.device)
     zero = torch.zeros_like(x)
     z = torch.where(is_head, zero, x)
-    s = torch.sqrt(torch.zeros(x.shape[0], len(sizes), dtype=x.dtype,
-                               device=x.device).index_add_(1, seg, z * z))
+    s = torch.sqrt(segment_sum(z * z, sizes))
     t = x[:, heads]
     inside = s <= t
     below = s <= -t

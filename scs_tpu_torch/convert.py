@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .types import ConeSpec, Problem, Settings, Solution
+from .types import ConeData, ConeSpec, Problem, Settings, Solution
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
@@ -29,10 +29,22 @@ def problem_from_numpy(A, b, c, P=None, dtype=torch.float64) -> Problem:
 
 def spec_from_dict(d: dict) -> ConeSpec:
     """ConeSpec from `dataclasses.asdict` of the JAX package's ConeSpec;
-    list-valued fields become tuples, so the spec stays hashable."""
+    list-valued fields become tuples, so the spec stays hashable (the
+    power exponents `p` as Python floats)."""
     kw = {k: tuple(v) if isinstance(v, (list, tuple)) else v
           for k, v in d.items()}
+    if "p" in kw:
+        kw["p"] = tuple(float(a) for a in kw["p"])
     return ConeSpec(**kw)
+
+
+def cone_data_from_numpy(spec: ConeSpec, bu=None, bl=None,
+                         dtype=torch.float64) -> ConeData:
+    """The box bounds of the JAX package's ConeData (`np.asarray(cd.bu)`,
+    `np.asarray(cd.bl)`) as this package's ConeData."""
+    return ConeData.make(
+        spec, None if bu is None else np.array(bu, np.float64),
+        None if bl is None else np.array(bl, np.float64), dtype=dtype)
 
 
 def settings_from_dict(d: dict) -> Settings:
@@ -49,7 +61,9 @@ def settings_from_dict(d: dict) -> Settings:
 
 
 def solution_from_numpy(x, y, s) -> Solution:
-    """A warm start from the JAX package's solution vectors."""
+    """A warm start from the JAX package's solution vectors. (Neither
+    package's Workspace carries a box warm start across solves: each solve
+    starts the box Newton at t = 1.)"""
     return Solution(x=_tensor(x), y=_tensor(y), s=_tensor(s))
 
 

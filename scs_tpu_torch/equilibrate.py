@@ -3,8 +3,11 @@
 Counterpart of `scs_tpu/equilibrate.py` (SCS: linsys/scs_matrix.c:226-496,
 25 Ruiz passes + 1 L2 pass respecting cone boundaries, and
 src/normalize.c:33-90). Row and column norms are reductions over the
-dense A and P; the per-cone aggregation is a scatter-reduce over a
-segment-id map derived from the cone layout.
+dense A and P; the per-cone aggregation is a scatter-reduce (amax, exact
+in any order) over a segment-id map derived from the cone layout, and,
+for the sums of the L2 pass, segment sums in a fixed order
+(`cones.segments.segment_sum`), so that D repeats bit for bit from run to
+run on the card.
 
 The `*_batched` functions equilibrate and normalize a stack of B problems
 of one shape (leading batch axis); each problem's D and E are those of
@@ -21,6 +24,7 @@ import torch
 
 from . import config
 from .cones.project import cone_boundaries
+from .cones.segments import segment_sum
 from .types import ConeSpec
 
 
@@ -34,17 +38,28 @@ class Scaling:
     dual_scale: torch.Tensor     # sigma
 
 
-def _segment_ids(spec: ConeSpec) -> tuple[np.ndarray, int]:
-    """Per-row segment ids for cone-boundary aggregation: rows of the first
+def _segment_sizes(spec: ConeSpec) -> tuple[int, ...]:
+    """Row counts of the cone-boundary segments: rows of the first
     boundary block (z + l + box) are one segment each, every later cone is
     one segment."""
     b = cone_boundaries(spec)
-    ids = list(range(b[0]))
-    seg = b[0]
-    for blen in b[1:]:
-        ids.extend([seg] * blen)
-        seg += 1
-    return np.asarray(ids, dtype=np.int64), seg
+    return (1,) * b[0] + tuple(b[1:])
+
+
+def _segment_ids(spec: ConeSpec) -> tuple[np.ndarray, int]:
+    """Per-row segment ids of `_segment_sizes`, and the segment count."""
+    sizes = _segment_sizes(spec)
+    ids = np.repeat(np.arange(len(sizes)), sizes)
+    return ids.astype(np.int64), len(sizes)
+
+
+def _segment_mean(vals, spec: ConeSpec, ids):
+    """Per-row mean of vals (..., m) over the row's segment (ids: the
+    rows' segment ids on vals' device)."""
+    sizes = _segment_sizes(spec)
+    cnt = torch.as_tensor(np.maximum(np.asarray(sizes, np.float64), 1.0),
+                          dtype=vals.dtype, device=vals.device)
+    return (segment_sum(vals, sizes) / cnt)[..., ids]
 
 
 def _apply_limit(x: torch.Tensor) -> torch.Tensor:
@@ -53,9 +68,9 @@ def _apply_limit(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_max(x, config.MAX_NORMALIZATION_FACTOR)
 
 
-def _segment_reduce(vals, ids, nseg, reduce: str):
+def _segment_amax(vals, ids, nseg):
     out = torch.zeros(nseg, dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce(0, ids, vals, reduce, include_self=False)
+    return out.scatter_reduce(0, ids, vals, "amax", include_self=False)
 
 
 def equilibrate(A: torch.Tensor, P, spec: ConeSpec):
@@ -71,7 +86,7 @@ def equilibrate(A: torch.Tensor, P, spec: ConeSpec):
     for _ in range(config.NUM_RUIZ_PASSES):
         # D: inf-norm of rows of A, aggregated (inf-norm) within each cone
         Dt = torch.amax(torch.abs(A), dim=1)
-        Dt = _segment_reduce(Dt, ids, nseg, "amax")[ids]
+        Dt = _segment_amax(Dt, ids, nseg)[ids]
         Dt = 1.0 / torch.sqrt(_apply_limit(Dt))
         # E: inf-norm of cols of [P; A]
         Et = torch.amax(torch.abs(A), dim=0)
@@ -86,9 +101,7 @@ def equilibrate(A: torch.Tensor, P, spec: ConeSpec):
 
     for _ in range(config.NUM_L2_PASSES):
         Dt = torch.sqrt(torch.sum(A * A, dim=1))
-        seg_sum = _segment_reduce(Dt, ids, nseg, "sum")
-        seg_cnt = _segment_reduce(torch.ones_like(Dt), ids, nseg, "sum")
-        Dt = (seg_sum / torch.clamp_min(seg_cnt, 1.0))[ids]  # cone-wise mean
+        Dt = _segment_mean(Dt, spec, ids)       # cone-wise mean
         Dt = 1.0 / torch.sqrt(_apply_limit(Dt))
         Et = torch.sum(A * A, dim=0)
         if P is not None:
@@ -145,10 +158,10 @@ def identity_scaling(m: int, n: int, dtype, device) -> Scaling:
 # ---- a batch of problems (leading batch axis) ----
 
 
-def _segment_reduce_batched(vals, ids, nseg, reduce: str):
+def _segment_amax_batched(vals, ids, nseg):
     out = torch.zeros(vals.shape[0], nseg, dtype=vals.dtype,
                       device=vals.device)
-    return out.scatter_reduce(1, ids.expand_as(vals), vals, reduce,
+    return out.scatter_reduce(1, ids.expand_as(vals), vals, "amax",
                               include_self=False)
 
 
@@ -164,7 +177,7 @@ def equilibrate_batched(A: torch.Tensor, P, spec: ConeSpec):
 
     for _ in range(config.NUM_RUIZ_PASSES):
         Dt = torch.amax(torch.abs(A), dim=2)
-        Dt = _segment_reduce_batched(Dt, ids, nseg, "amax")[:, ids]
+        Dt = _segment_amax_batched(Dt, ids, nseg)[:, ids]
         Dt = 1.0 / torch.sqrt(_apply_limit(Dt))
         Et = torch.amax(torch.abs(A), dim=1)
         if P is not None:
@@ -178,10 +191,7 @@ def equilibrate_batched(A: torch.Tensor, P, spec: ConeSpec):
 
     for _ in range(config.NUM_L2_PASSES):
         Dt = torch.sqrt(torch.sum(A * A, dim=2))
-        seg_sum = _segment_reduce_batched(Dt, ids, nseg, "sum")
-        seg_cnt = _segment_reduce_batched(torch.ones_like(Dt), ids, nseg,
-                                          "sum")
-        Dt = (seg_sum / torch.clamp_min(seg_cnt, 1.0))[:, ids]
+        Dt = _segment_mean(Dt, spec, ids)
         Dt = 1.0 / torch.sqrt(_apply_limit(Dt))
         Et = torch.sum(A * A, dim=1)
         if P is not None:

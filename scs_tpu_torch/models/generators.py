@@ -1,10 +1,14 @@
 """Problem generators: planted-optimum random cone programs and
 certificate (infeasible / unbounded) constructions.
 
-Counterpart of `scs_tpu/models/generators.py` for the zero, nonnegative
-and second-order cones. Everything is drawn with numpy's RandomState in
-the JAX package's order, so a seed gives bit-identical A, b and c in both
-packages. The planted pair mirrors SCS's test harness
+Counterpart of `scs_tpu/models/generators.py` for the cones this package
+projects. Everything is drawn with numpy's RandomState in the JAX
+package's order, so a seed gives bit-identical A, b and c in both
+packages wherever the dual projection is the numpy one (zero,
+nonnegative and SOC layouts); a layout with box, exp or power cones
+projects through this package's `proj_dual_cone` in float64 on the CPU,
+as the JAX package projects through its own, so the two agree to the
+projections' round-off. The planted pair mirrors SCS's test harness
 (test/problem_utils.h:22-81): y in K*, s = y - z in K with y's = 0, a
 random x, b = Ax + s and c = -A'y (- Px for QPs).
 """
@@ -17,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..cones.project import require_supported
+from ..cones.project import proj_dual_cone, require_supported
 from ..types import ConeData, ConeSpec, Problem
 
 
@@ -32,10 +36,9 @@ class PlantedProblem:
     opt: float  # optimal objective (1/2 x'Px + c'x)
 
 
-def _project_dual(z: np.ndarray, spec: ConeSpec) -> np.ndarray:
+def _project_dual_np(z: np.ndarray, spec: ConeSpec) -> np.ndarray:
     """Numpy projection onto the dual cone of a zero/nonnegative/SOC
     layout (zero cone: the dual is free)."""
-    require_supported(spec)
     out = np.asarray(z, np.float64).copy()
     off = spec.z
     out[off:off + spec.l] = np.maximum(out[off:off + spec.l], 0.0)
@@ -57,6 +60,21 @@ def _project_dual(z: np.ndarray, spec: ConeSpec) -> np.ndarray:
                 v[1:] = a * x
         off += q
     return out
+
+
+def _project_dual(z: np.ndarray, spec: ConeSpec,
+                  cone_data: ConeData) -> np.ndarray:
+    """Projection onto the dual cone: numpy for zero/nonnegative/SOC
+    layouts, else `proj_dual_cone` in float64 on the CPU."""
+    require_supported(spec)
+    if not (spec.bsize or spec.ep or spec.ed or spec.p):
+        return _project_dual_np(z, spec)
+    bu = torch.as_tensor(np.asarray(cone_data.bu), dtype=torch.float64)
+    bl = torch.as_tensor(np.asarray(cone_data.bl), dtype=torch.float64)
+    out, _ = proj_dual_cone(torch.as_tensor(z, dtype=torch.float64), spec,
+                            ConeData(bu=bu, bl=bl),
+                            torch.ones((), dtype=torch.float64), None)
+    return out.numpy()
 
 
 def _problem(A, b, c, P, dtype) -> Problem:
@@ -81,7 +99,7 @@ def gen_planted(spec: ConeSpec, n: int, seed: int = 0, density: float = 0.3,
             A[rng.randint(m), j] = rng.uniform(-1, 1)
 
     z = rng.uniform(-1, 1, m)
-    y = _project_dual(z, spec)
+    y = _project_dual(z, spec, cone_data)
     s = y - z  # s in K, y in K*, s'y = 0 (Moreau)
     x = rng.uniform(-1, 1, n)
 
@@ -111,7 +129,7 @@ def gen_infeasible(spec: ConeSpec, n: int, seed: int = 0,
         cone_data = ConeData.make(spec, dtype=dtype)
     A = rng.uniform(-1, 1, (m, n))
     z = rng.uniform(0.1, 1, m)
-    y0 = _project_dual(z, spec)
+    y0 = _project_dual(z, spec, cone_data)
     if not np.linalg.norm(y0):
         raise ValueError("certificate projection collapsed to zero")
     A = A - np.outer(y0, y0 @ A) / (y0 @ y0)       # A' y0 = 0
@@ -135,7 +153,7 @@ def gen_unbounded(spec: ConeSpec, n: int, seed: int = 0,
         cone_data = ConeData.make(spec, dtype=dtype)
     A = rng.uniform(-1, 1, (m, n))
     z = rng.uniform(-1, 1, m)
-    s0 = z + _project_dual(-z, spec)                # s0 = Pi_K(z) (Moreau)
+    s0 = z + _project_dual(-z, spec, cone_data)     # s0 = Pi_K(z) (Moreau)
     x0 = rng.uniform(-1, 1, n)
     A = A + np.outer(-s0 - A @ x0, x0) / (x0 @ x0)  # A x0 = -s0
     c = rng.uniform(-1, 1, n)

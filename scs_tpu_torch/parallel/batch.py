@@ -24,8 +24,11 @@ float32, the double-single splits kept, so that its residual checks, and
 the direct backend's solves, stay float64-accurate through kernels K2 and
 K3; each backend converts its factor between the two regimes
 (`enter_f32_state`, `leave_f32_state`). The state returns to float64 at
-the phase's end, and every lane's dual block is re-projected in float64
-at the finish (`moreau_repolish_batched`).
+the phase's end. The exp and power cones project in float64 in every
+phase unless `Settings.exp_f32=True` (`cones/project.py` says where this
+leaves the reference). Where a mixed solve has exp or power cones, or
+ran float32 state, every lane's dual block is re-projected in float64
+at the finish (`solver.moreau_repolish`).
 
 Every entry point solves on the card (`device="cuda"`) unless the caller
 passes `device="cpu"`, and raises without a card. `ds_split=True` builds
@@ -45,16 +48,16 @@ import torch
 
 from .. import config
 from ..api import _not_ported, _resolve_device
+from ..cones.box import scale_box_bounds
 from ..cones.project import require_supported
 from ..equilibrate import (equilibrate_batched, identity_scaling_batched,
                            normalize_b_c_batched, normalize_xys_batched,
                            unnormalize_xys_batched)
 from ..linsys import (Mats, get_backend, prepare_operands_batched,
                       resolve_ds_split, resolve_fast_f32, resolve_mixed)
-from ..solver import ProblemData
+from ..solver import ProblemData, moreau_repolish
 from ..solver_batched import (BatchedIteration, BatchedState, Rows,
-                              fresh_state, moreau_repolish_batched,
-                              pack_warm_v_batched,
+                              fresh_state, pack_warm_v_batched,
                               populate_residuals_batched, put_rows,
                               set_diag_r_batched, take_rows, tree_map)
 from ..types import ConeData, ConeSpec, Settings
@@ -127,6 +130,9 @@ def _parts(spec: ConeSpec, stg: Settings, device, ds_split):
             else put(bl)
         if stg.normalize:
             A_n, P_n, scal = equilibrate_batched(A, P, spec)
+            if spec.bsize > 1:
+                box = slice(spec.z + spec.l, spec.z + spec.l + spec.bsize)
+                bu, bl = scale_box_bounds(bu, bl, scal.D[:, box])
             b_n, c_n, scal = normalize_b_c_batched(scal, b, c)
         else:
             A_n, P_n = A, P
@@ -247,11 +253,10 @@ def f64_state(st: BatchedState, backend) -> BatchedState:
 
 
 def _polish_settings(stg: Settings) -> Settings:
-    """Settings of the polish phase: the mixed linear solver kept, the
-    cones in float64. For the cones ported so far (zero, nonnegative,
-    SOC) the cone settings change nothing, so both phases run the same
-    iteration."""
-    return dataclasses.replace(stg, mixed_precision=True, cone_f32=False)
+    """Settings of the polish phase: the mixed linear solver kept, every
+    cone in float64 (the JAX package's `_polish_settings`)."""
+    return dataclasses.replace(stg, mixed_precision=True, cone_f32=False,
+                               exp_f32=None)
 
 
 def _needs_polish(stg: Settings, status: torch.Tensor) -> torch.Tensor:
@@ -382,11 +387,12 @@ class _Machinery:
     def __init__(self, spec: ConeSpec, stg: Settings, device, ds_split,
                  compact: bool):
         self.spec, self.stg = spec, stg
-        # the float64-state phases run this iteration: the polish settings
-        # differ from the fast phase's only in cone settings that the
-        # ported cones do not read (`_polish_settings`)
+        # the pure solve and a float64-state fast phase run this
+        # iteration; the polish phase runs its own (`_polish_settings`:
+        # every cone in float64)
         self.it, self.init_fn, _, self.final_fn = _parts(
             spec, stg, device, ds_split)
+        self.it_polish = BatchedIteration(spec, _polish_settings(stg), True)
         self.mixed = self.it.mixed
         self.device = _resolve_device(device)
         self.f32_state = resolve_fast_f32(
@@ -533,7 +539,7 @@ class _Machinery:
             st = self.repair(data, st)
             try:
                 st, _, stop = self.run_phase(
-                    "polish", self.it, data, st, cap,
+                    "polish", self.it_polish, data, st, cap,
                     entry_alive=torch.as_tensor(needs), deadline=deadline)
             except KeyboardInterrupt:
                 stop = "sigint"
@@ -543,10 +549,12 @@ class _Machinery:
 
     def finalize(self, data, st: BatchedState):
         """(SolveResult, state) of a mixed solve; after a float32-state
-        phase every lane's dual block is re-projected in float64 first
+        phase, or where the fast phase projected exp/power cones in
+        float32, every lane's dual block is re-projected in float64 first
         (the JAX chunked solver's `_finalize`)."""
-        if self.f32_state:
-            st = moreau_repolish_batched(data, self.spec, st)
+        spec = self.spec
+        if self.f32_state or spec.ep or spec.ed or spec.p:
+            st = moreau_repolish(data, spec, st)
         return self.final_fn(data, st), st
 
 

@@ -113,6 +113,7 @@ class LoopState:
     g: torch.Tensor               # (l-1,) cache: (I+M)^{-1} [c; -b]
     derived: Any                  # linsys factor
     scale: torch.Tensor
+    box_t_warm: torch.Tensor      # box cone Newton warm start (0-d)
     res: Residuals
     sum_log_scale_factor: torch.Tensor
     n_log_scale_factor: int
@@ -319,6 +320,27 @@ def has_converged(r: Residuals, data: ProblemData) -> torch.Tensor:
                                 config.UNFINISHED)))
 
 
+def moreau_repolish(data: ProblemData, spec: ConeSpec, st):
+    """One float64 Moreau re-projection of the dual block at the finish
+    (the JAX `make_moreau_repolish`, solver.py:750-781). A float32-state
+    phase, or float32 exp projections (`Settings.exp_f32`), leave the
+    returned (s, y) in their cones only to float32 accuracy; the last
+    projection's argument w = u_y - rsk_y / R_y is recovered from the
+    carried split, projected again in float64, and both halves of the
+    split are rewritten, so s in K, y in K* and s'y = 0 hold to float64
+    round-off. Idempotent up to round-off where the last projection was
+    float64 already. Takes one problem's state (LoopState) or a batch's
+    (rows of B lanes)."""
+    m, n = data.A.shape[-2:]
+    r_y = st.diag_r[..., n:n + m]
+    w = st.u[..., n:n + m] - st.rsk[..., n:n + m] / r_y
+    y, box_t = proj_dual_cone(w, spec, data.cone, st.box_t_warm, r_y)
+    u, rsk = st.u.clone(), st.rsk.clone()
+    u[..., n:n + m] = y
+    rsk[..., n:n + m] = (y - w) * r_y
+    return dataclasses.replace(st, u=u, rsk=rsk, box_t_warm=box_t)
+
+
 class Iteration:
     """The ADMM iteration for one cone layout and one set of settings
     (the JAX package's `_build_iteration`): `step(data, st)` runs one
@@ -328,6 +350,10 @@ class Iteration:
         self.spec = spec
         self.stg = stg
         self.mixed = mixed
+        # float32 exp projections only where Settings.exp_f32 asks for
+        # them: the JAX package also turns them on with mixed
+        # (solver.py:440-447); the port does not (ROADMAP section 3, R4)
+        self.exp32 = bool(stg.exp_f32)
         self.backend = get_backend(stg.linsys)
         self.is_indirect = stg.linsys == "indirect"
         self.use_aa = stg.acceleration_lookback > 0
@@ -371,16 +397,18 @@ class Iteration:
         return torch.cat([sol - tau * st.g, tau[None]]), cg_its
 
     def _project_cones(self, data: ProblemData, st: LoopState, u_t):
+        """(u, new box warm start)."""
         m, n = data.A.shape
         l = n + m + 1
         u_pre = 2.0 * u_t - st.v
-        y_proj = proj_dual_cone(u_pre[n:n + m], self.spec, data.cone,
-                                st.diag_r[n:n + m])
+        y_proj, box_t = proj_dual_cone(u_pre[n:n + m], self.spec, data.cone,
+                                       st.box_t_warm, st.diag_r[n:n + m],
+                                       exp_f32=self.exp32)
         if st.iter < config.FEASIBLE_ITERS:
             tau = torch.ones((), dtype=u_pre.dtype, device=u_pre.device)
         else:
             tau = torch.clamp_min(u_pre[l - 1], 0.0)
-        return torch.cat([u_pre[:n], y_proj, tau[None]])
+        return torch.cat([u_pre[:n], y_proj, tau[None]]), box_t
 
     def _scale_proposal(self, data: ProblemData, st: LoopState):
         """The adaptive-scale candidate (scs.c:1164-1241): (new_scale,
@@ -463,10 +491,10 @@ class Iteration:
         # 4. linear system projection
         u_t, cg_its = self._project_lin_sys(data, st)
         # 5. cone projection
-        u = self._project_cones(data, st, u_t)
+        u, box_t = self._project_cones(data, st, u_t)
         # 6. rsk = R (v + u - 2 u_t), before the dual update (scs.c:781-786)
         rsk = (v + u - 2.0 * u_t) * st.diag_r
-        st = dataclasses.replace(st, u=u, u_t=u_t, rsk=rsk,
+        st = dataclasses.replace(st, u=u, u_t=u_t, rsk=rsk, box_t_warm=box_t,
                                  tot_cg_its=st.tot_cg_its + cg_its)
 
         if i % config.CONVERGED_INTERVAL == 0:

@@ -67,7 +67,8 @@ from .types import ConeSpec, Settings
 class BatchedState:
     """The loop state of B lanes. Device tensors: u, u_t, v, v_prev, rsk,
     diag_r (B, l); g (B, l - 1); derived (the batch's factors); scale,
-    sum_log_scale_factor, n_log_scale_factor, aa_norm (B,) float; res
+    box_t_warm, sum_log_scale_factor, n_log_scale_factor, aa_norm (B,)
+    float; res
     (Residuals of (B,) tensors); aa (batched AAState); accepted_accel,
     rejected_accel, tot_cg_its (B,) int64. Host int64 tensors (B,): iter,
     status, cadence, last_scale_update_iter, scale_updates."""
@@ -81,6 +82,7 @@ class BatchedState:
     g: torch.Tensor
     derived: Any
     scale: torch.Tensor
+    box_t_warm: torch.Tensor
     res: Residuals
     sum_log_scale_factor: torch.Tensor
     n_log_scale_factor: torch.Tensor
@@ -324,25 +326,6 @@ def has_converged_batched(r: Residuals, data: ProblemData) -> torch.Tensor:
                                 config.UNFINISHED)))
 
 
-def moreau_repolish_batched(data: ProblemData, spec: ConeSpec,
-                            st: "BatchedState") -> "BatchedState":
-    """One Moreau re-projection of the dual block of every lane, in the
-    state's dtype (the JAX `make_moreau_repolish`, solver.py:750-781): the
-    last projection's argument w = u_y - rsk_y / R_y is projected again
-    and both halves of the split are rewritten, so that a lane that ended
-    in the float32-state phase returns s in K, y in K* and s'y = 0 to
-    float64 round-off. Idempotent up to round-off for a lane whose last
-    projection was float64 already."""
-    m, n = data.A.shape[1:]
-    r_y = st.diag_r[:, n:n + m]
-    w = st.u[:, n:n + m] - st.rsk[:, n:n + m] / r_y
-    y = proj_dual_cone_batched(w, spec, r_y)
-    u, rsk = st.u.clone(), st.rsk.clone()
-    u[:, n:n + m] = y
-    rsk[:, n:n + m] = (y - w) * r_y
-    return dataclasses.replace(st, u=u, rsk=rsk)
-
-
 def residuals_zeros_batched(B: int, dtype, device) -> Residuals:
     z = torch.zeros(B, dtype=dtype, device=device)
     vals = {f.name: z for f in dataclasses.fields(Residuals)}
@@ -363,6 +346,7 @@ def fresh_state(v, diag_r, g, derived, scale, mem: int) -> BatchedState:
     return BatchedState(
         u=zero_l, u_t=zero_l, v=v, v_prev=v, rsk=zero_l, diag_r=diag_r,
         g=g, derived=derived, scale=scale,
+        box_t_warm=torch.ones(B, dtype=dtype, device=dev),
         res=residuals_zeros_batched(B, dtype, dev),
         sum_log_scale_factor=zf, n_log_scale_factor=zf,
         aa=accel.aa_init_batched(B, l, mem, dtype, dev), aa_norm=zf,
@@ -383,6 +367,7 @@ class BatchedIteration:
         self.stg = stg
         self.mixed = mixed
         self.f32_state = f32_state
+        self.exp32 = bool(stg.exp_f32)      # as `solver.Iteration`
         self.backend = get_backend(stg.linsys)
         self.is_indirect = stg.linsys == "indirect"
         self.use_aa = stg.acceleration_lookback > 0
@@ -529,8 +514,9 @@ class BatchedIteration:
 
         # 5. cone projection
         u_pre = 2.0 * u_t - v
-        y_proj = proj_dual_cone_batched(u_pre[:, n:n + m], spec,
-                                        dr[:, n:n + m])
+        y_proj, box_t = proj_dual_cone_batched(
+            u_pre[:, n:n + m], spec, data.cone, st.box_t_warm,
+            dr[:, n:n + m], exp_f32=self.exp32)
         tau_c = torch.clamp_min(u_pre[:, l - 1], 0.0)
         if pin_dev is not None:
             tau_c = torch.where(pin_dev, 1.0, tau_c)
@@ -539,7 +525,7 @@ class BatchedIteration:
         # 6. rsk = R (v + u - 2 u_t), before the dual update
         rsk = (v + u - 2.0 * u_t) * dr
         st = dataclasses.replace(
-            st, v=v, v_prev=v, u=u, u_t=u_t, rsk=rsk,
+            st, v=v, v_prev=v, u=u, u_t=u_t, rsk=rsk, box_t_warm=box_t,
             tot_cg_its=st.tot_cg_its + its * act_dev)
 
         proceed, proceed_dev = act, act_dev

@@ -47,8 +47,9 @@ class ConeSpec:
     Rows of A follow this order: zero, nonnegative, box, SOC blocks, PSD
     blocks, complex-PSD blocks, primal exp triples, dual exp triples, power
     triples, then the spectral cones. All fields are kept so that any spec of
-    the JAX package converts; the solver projects only the zero,
-    nonnegative and second-order cones so far (`cones.project`).
+    the JAX package converts; the solver projects the zero, nonnegative,
+    box, second-order, exponential and power cones so far
+    (`cones.project`).
     """
 
     z: int = 0                      # zero cone (equalities)

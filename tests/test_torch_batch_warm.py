@@ -267,16 +267,17 @@ def test_proj_dual_cone_batched_is_per_problem():
     rng = np.random.RandomState(5)
     x = torch.tensor(rng.randn(4, spec.dims()) * 3)
     r = torch.tensor(rng.uniform(0.01, 10.0, (4, spec.dims())))
-    got = project.proj_dual_cone_batched(x, spec, r)
+    got, _ = project.proj_dual_cone_batched(x, spec, None, None, r)
     for i in range(4):
         torch.testing.assert_close(
-            got[i], project.proj_dual_cone(x[i], spec, None, r[i]),
+            got[i], project.proj_dual_cone(x[i], spec, None, None, r[i])[0],
             rtol=1e-13, atol=1e-13)
     uniform = ConeSpec(l=2, q=(3, 3))
     xu = x[:, :uniform.dims()]
-    got = project.proj_cone_batched(xu, uniform)
+    got, _ = project.proj_cone_batched(xu, uniform)
     for i in range(4):
-        torch.testing.assert_close(got[i], project.proj_cone(xu[i], uniform),
+        torch.testing.assert_close(got[i],
+                                   project.proj_cone(xu[i], uniform)[0],
                                    rtol=1e-13, atol=1e-13)
 
 

@@ -1,7 +1,7 @@
-"""scs_tpu_torch's CUDA kernels (K1-K5) and solves on the card. Every test
-carries the `cuda` marker and skips without a CUDA device. The file
-imports neither JAX nor the JAX package, so it runs where only PyTorch is
-installed:
+"""scs_tpu_torch's CUDA kernels (K1-K5), its cone graphs and solves on the
+card. Every test carries the `cuda` marker and skips without a CUDA
+device. The file imports neither JAX nor the JAX package, so it runs
+where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -482,3 +482,113 @@ def test_indirect_cg_graphs_change_nothing(cuda, monkeypatch):
     assert torch.equal(runs[0].status, runs[1].status)
     p0, p1 = runs[0].pobj, runs[1].pobj
     assert bool(((p0 - p1).abs() <= 1e-4 * (1 + p1.abs())).all())
+
+
+# ---- the box, exp and power cones, and repeatability ----
+
+def _cone_args(fam, lead, dtype, dev):
+    gen = torch.Generator(device="cpu").manual_seed(17)
+
+    def rnd(*shape):
+        return torch.randn((*lead, *shape), generator=gen,
+                           dtype=torch.float64).to(dtype).to(dev)
+
+    if fam == "box":
+        from scs_tpu_torch.cones.box import proj_box_cone
+        bl, bu = -(0.5 + rnd(8).abs()), 0.5 + rnd(8).abs()
+        bu[..., 3] = math.inf
+        return proj_box_cone, (2.0 * rnd(9), bl, bu, 0.5 + rnd().abs(),
+                               0.01 + rnd(9).abs())
+    if fam == "exp":
+        from scs_tpu_torch.cones.exp import proj_exp_batch
+        return proj_exp_batch, (2.0 * rnd(23, 3),
+                                torch.arange(23, device=dev) < 15)
+    from scs_tpu_torch.cones.power import proj_power_batch
+    a = torch.linspace(-0.9, 0.9, 10, dtype=torch.float64)
+    return proj_power_batch, (2.0 * rnd(10, 3),
+                              torch.where(a == 0, 0.5, a).to(dtype).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("fam", ["box", "exp", "power"])
+def test_cone_graph_matches_eager(cuda, fam, dtype):
+    """Each cone family replayed as a CUDA graph (`graphs.run`) gives its
+    eager run's output bitwise, on one problem and on a batch of 64; the
+    eager run on the card agrees with the CPU's within 1e-12 (float64) or
+    1e-5 (float32) relative (the two devices' exp, log and pow round in
+    other last bits)."""
+    from scs_tpu_torch.cones import graphs
+    for lead in ((), (64,)):
+        fn, args = _cone_args(fam, lead, dtype, cuda)
+        eager = fn(*args)
+        before = graphs.captures
+        for _ in range(2):
+            out = graphs.run(fn, args)
+        assert graphs.captures <= before + 1
+        eager = (eager,) if torch.is_tensor(eager) else eager
+        out = (out,) if torch.is_tensor(out) else out
+        for g, e in zip(out, eager):
+            assert torch.equal(g, e)
+        cpu = fn(*(a.cpu() for a in args))
+        cpu = (cpu,) if torch.is_tensor(cpu) else cpu
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        for g, c in zip(out, cpu):
+            err = (g.cpu().double() - c.double()).abs() / c.double().abs(
+                ).clamp_min(1.0)
+            assert float(err.max()) <= tol
+
+
+def _mixed_cone_problem():
+    from scs_tpu_torch.models import mixed_cones
+    spec = ConeSpec(z=3, l=10, bsize=6, q=(4, 3), ep=3, ed=2,
+                    p=(0.4, -0.7, 0.25))
+    return spec, mixed_cones.gen_mixed(spec, 15, 21, 0.5)
+
+
+@pytest.mark.parametrize("exp_f32", [None, True])
+@pytest.mark.parametrize("linsys", ["direct", "indirect"])
+def test_mixed_cone_solve_on_the_card(cuda, linsys, exp_f32):
+    """One box/SOC/exp/power program per backend in the card's default
+    mode (mixed, every cone projected in float64) and with the exp cones
+    in float32 on the fast phase (`exp_f32=True`), each finished by the
+    float64 re-projection: solved, within 1e-3 of the planted optimum,
+    and within 1e-4 (1 + |pobj|) of the pure float64 solve on the CPU
+    through the direct backend, 1e-3 through the indirect one (its CG
+    stops on data-dependent tests, so the two solves end at different
+    iterates, each only as accurate as SCS's eps 1e-4 guarantees, as in
+    tests/test_torch_indirect.py)."""
+    spec, p = _mixed_cone_problem()
+    ws = Workspace(p.problem, spec, p.cone_data,
+                   Settings(linsys=linsys, exp_f32=exp_f32))
+    assert ws._mixed and ws._repolish
+    sol, info = ws.solve()
+    _, ref = Workspace(p.problem, spec, p.cone_data,
+                       Settings(linsys=linsys, mixed_precision=False),
+                       device="cpu").solve()
+    assert info.status == ref.status == "solved"
+    assert abs(info.pobj - p.opt) <= 1e-3 * (1 + abs(p.opt))
+    tol = 1e-4 if linsys == "direct" else 1e-3
+    assert abs(info.pobj - ref.pobj) <= tol * (1 + abs(ref.pobj))
+    assert abs(float(sol.s @ sol.y)) <= 1e-9 * max(
+        np.abs(sol.s).max(), np.abs(sol.y).max(), 1.0)
+
+
+def test_two_solves_repeat_on_the_card(cuda):
+    """Two solves of one instance on the card take the same iterations
+    and give the same bits (indirect, pure float64; and the mixed default
+    with its float32-state batch of 8)."""
+    spec, p = _mixed_cone_problem()
+    runs = []
+    for _ in range(2):
+        ws = Workspace(p.problem, spec, p.cone_data,
+                       Settings(mixed_precision=False))
+        sol, info = ws.solve()
+        runs.append((info.iter, ws.tot_cg_its, sol.x, sol.y, sol.s))
+    assert runs[0][:2] == runs[1][:2]
+    for a, b in zip(runs[0][2:], runs[1][2:]):
+        assert np.array_equal(a, b)
+    spec, A, b, c, bnd, _ = _small_batch(8)
+    args = (A.to(cuda), b.to(cuda), c.to(cuda), bnd.to(cuda), bnd.to(cuda))
+    its = [make_chunked_batch_solver(spec, Settings(linsys="direct"))(
+        *args).iters.cpu() for _ in range(2)]
+    assert torch.equal(its[0], its[1])

@@ -156,14 +156,15 @@ def test_proj_dual_cone_matches():
         ref, _ = j_project.proj_dual_cone(
             jnp.asarray(x), spec, cd, jnp.ones(()),
             None if r is None else jnp.asarray(r))
-        got = project.proj_dual_cone(t64(x), tspec, None,
-                                     None if r is None else t64(r))
+        got, _ = project.proj_dual_cone(t64(x), tspec, None, None,
+                                        None if r is None else t64(r))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                    rtol=1e-12, atol=1e-12)
         jprim, _ = j_project.proj_cone(jnp.asarray(x), spec, cd,
                                        jnp.ones(()), None)
-        np.testing.assert_allclose(project.proj_cone(t64(x), tspec).numpy(),
-                                   np.asarray(jprim), rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(
+            project.proj_cone(t64(x), tspec)[0].numpy(), np.asarray(jprim),
+            rtol=1e-12, atol=1e-12)
 
 
 def test_proj_cone_outside_slice_raises():
