@@ -29,14 +29,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. the indirect backend (the default `Settings.linsys`): the large SOCP
      mixed (the card's default) and pure float64, with its CG iterations
      and host reads, against the planted optimum and the direct solve;
-     then the first 256 lanes of the headline batch in the default mode
+     then the first 8 lanes of the headline batch in the default mode
      (mixed, float32 state) and mixed with float64 state, every lane held
      to SCS's termination test;
   8. the roofline probe `roofline.measure(n=4096, iters=400, reps=3)`,
      the path of kernel K5, and K4's entry point `ds_matmul`;
  10. repeatability: the large SOCP through the indirect backend in pure
-     float64 solved twice here and once in a fresh process (this script
-     with `--repeat-child`), bitwise equal; the 64 easiest lanes of
+     float64 solved twice here (the first time in phase 7) and once in a
+     fresh process (this script with `--repeat-child`, run beside the
+     second), bitwise equal; the 64 easiest lanes of
      phase 5 solved twice in the default mode, lane counts equal;
  11. the mixed-cone configurations (`models/mixed_cones.py`): each of the
      box, exp and power projections as a CUDA graph against its eager run
@@ -50,9 +51,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      float64 state and in pure float64, every lane held to SCS's
      termination test and to the pure float64 run; and BatchWorkspace
      cold and warm on its 64 easiest lanes;
-  9. last, a profile of 100 iterations of the large SOCP, mixed and pure,
-     and mixed through the indirect backend, of 100 iterations of the
-     large mixed-cone program (direct mixed), and of 50 batched steps of
+ 12. the PSD configurations (`models/psd_cones.py`): each PSD and
+     complex-PSD block size projected by the card's eigh in float64 and
+     float32 against float64 numpy (`PSD_TOL`), with host ms and host
+     syncs per projection; the large PSD program (n=2048, m=8192: one
+     block of 90, eight of 16, a complex block of 24) direct mixed (K1
+     counted, the forced float64 polish entered), direct pure float64
+     and indirect mixed against its planted optimum and SCS's
+     termination test; the PSD headline batch at B=1024 mixed with
+     float32 state (K2 and K3 counted), with float64 state and in pure
+     float64, every mixed lane through the forced polish, every lane
+     held to SCS's termination test and to the pure float64 run; and
+     BatchWorkspace cold and warm on its 64 easiest lanes;
+  9. last, a profile of 25 iterations of the large SOCP, mixed and pure,
+     and mixed through the indirect backend, of 25 iterations of the
+     large mixed-cone program (direct mixed), and of 25 batched steps of
      each headline batch's float32-state phase (launches, device busy
      share, the kernels that take the most device time, the operators
      that take the most host time), and the batched Anderson QR against
@@ -60,6 +73,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 Phase 2 also holds K2 and K3 against their plain versions at the batched
 shapes, and K4 and K5 against theirs.
 Phases 3-6 run the direct backend (`Settings(linsys="direct")`).
+Each phase ends with a line `phase N done at T s` (seconds since the
+start). The whole run, the build included, has to end inside 1200 s on
+one H100: that is the time a caller of this script gives it.
 The second-to-last line is a JSON object with one entry per kernel (K1-K5),
 the last line {"ok": true, "device": {...}}.
 """
@@ -72,6 +88,8 @@ import statistics
 import subprocess
 import sys
 import time
+import types
+import warnings
 
 import numpy as np
 import torch
@@ -79,12 +97,12 @@ import torch
 from scs_tpu_torch import Settings, Workspace, accel
 from scs_tpu_torch.cones import box as box_cone
 from scs_tpu_torch.cones import exp as exp_cone
-from scs_tpu_torch.cones import graphs, project, segments, soc
+from scs_tpu_torch.cones import graphs, project, psd, segments, soc
 from scs_tpu_torch.cones import power as power_cone
 from scs_tpu_torch.demo_socp import make_spec
 from scs_tpu_torch.linsys import direct, indirect
 from scs_tpu_torch.models import gen_planted
-from scs_tpu_torch.models import mixed_cones
+from scs_tpu_torch.models import mixed_cones, psd_cones
 from scs_tpu_torch.types import ConeData
 from scs_tpu_torch.ops import _build, dsmatmul, dsmatvec, roofline
 from scs_tpu_torch.parallel import (BatchWorkspace,
@@ -592,7 +610,9 @@ def solve_indirect(p, spec, label, direct_pobj: float,
               f"finite")
         out[mode] = {"iter": info.iter, "cg": ws.tot_cg_its,
                      "solve_ms": info.solve_time, "launches": launches,
-                     "reads": reads, "mixed": ws._mixed}
+                     "reads": reads, "mixed": ws._mixed,
+                     "status": info.status,
+                     "digest": _digest(sol.x, sol.y, sol.s)}
     check(out["mixed"]["mixed"] and out["mixed"]["launches"] >= 2 *
           out["mixed"]["iter"], f"{label} indirect: the default solve on the "
           f"card is not mixed or launched K1 {out['mixed']['launches']} "
@@ -890,21 +910,28 @@ def _repeat_solve():
             "digest": _digest(sol.x, sol.y, sol.s), "status": info.status}
 
 
-def repeat_check(spec, batch_easy) -> dict:
+def repeat_check(spec, batch_easy, first: dict) -> dict:
     """Run-to-run repeatability on the card (ROADMAP section 3 A): the
-    large SOCP, indirect, pure float64, solved twice in this process and
-    once in a fresh one, must give equal iteration and CG counts and
-    bitwise-equal x, y and s; the 64-lane headline batch in its default
-    mode (mixed, float32 state) solved twice must give every lane the same
-    iteration count."""
-    runs = [_repeat_solve() for _ in range(2)]
+    large SOCP, indirect, pure float64, solved twice in this process (the
+    first time in phase 7: `first`, solve_indirect's record) and once in
+    a fresh one, started first and run beside the second, must give equal
+    iteration and CG counts and bitwise-equal x, y and s; the 64-lane
+    headline batch in its default mode (mixed, float32 state) solved
+    twice must give every lane the same iteration count."""
     here = os.path.dirname(os.path.abspath(__file__))
-    child = subprocess.run(
+    child = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--repeat-child"],
-        capture_output=True, text=True, timeout=600, cwd=here)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here)
+    runs = [{k: first[k] for k in ("iter", "cg", "digest", "status")},
+            _repeat_solve()]
+    try:
+        out, err = child.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        out, err = child.communicate()
     check(child.returncode == 0,
-          f"repeat check: the fresh process failed: {child.stderr[-2000:]}")
-    runs.append(json.loads(child.stdout.strip().splitlines()[-1]))
+          f"repeat check: the fresh process failed: {err[-2000:]}")
+    runs.append(json.loads(out.strip().splitlines()[-1]))
     for i, r in enumerate(runs):
         print(f"repeat check, large SOCP indirect pure f64, "
               f"{'fresh process' if i == 2 else f'run {i + 1}'}: "
@@ -960,6 +987,253 @@ def mixed_cone_large(p, spec) -> dict:
           f"{err:.2e}, against pure f64 {agree:.2e}")
     out["exp_f32"] = {"iter": info.iter, "solve_ms": info.solve_time}
     return out
+
+
+# ---- the PSD and complex-PSD cones (phase 12) ----
+
+# the card's eigh reconstruction against float64 numpy eigh, relative to
+# 1 + max |v| of the blocks: float64 and float32 (eigh and rebuild in
+# float32, as on the mixed fast phase)
+PSD_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+def _psd_blocks(ns: int, count: int, cplx: bool, seed: int) -> np.ndarray:
+    """`count` packed blocks Q diag(w) Q^H of dimension ns: half of w
+    N(0, 4), the other half within 1e-8 of 0 (a cluster, as the planted
+    y's zero eigenvalues make one)."""
+    rng = np.random.RandomState(seed)
+    G = rng.randn(count, ns, ns)
+    if cplx:
+        G = G + 1j * rng.randn(count, ns, ns)
+    Q, _ = np.linalg.qr(G)
+    w = np.where(np.arange(ns) < ns // 2, 2.0, 1e-8) * rng.randn(count, ns)
+    M = (Q * w[:, None, :]) @ np.conj(np.swapaxes(Q, 1, 2))
+    if not cplx:
+        _, _, r, c, scale = psd._tri_indices(ns)
+        return M[:, r, c].real * scale
+    diag_idx, re_idx, im_idx, lo_r, lo_c = psd._cplx_indices(ns)
+    v = np.zeros((count, ns * ns))
+    v[:, diag_idx] = np.diagonal(M, axis1=1, axis2=2).real
+    v[:, re_idx] = M[:, lo_r, lo_c].real * math.sqrt(2.0)
+    v[:, im_idx] = M[:, lo_r, lo_c].imag * math.sqrt(2.0)
+    return v
+
+
+def _psd_numpy(v: np.ndarray, ns: int, cplx: bool) -> np.ndarray:
+    """The plain float64 projection: numpy eigh, clip, rebuild, repack."""
+    if not cplx:
+        idx, uscale, r, c, pscale = psd._tri_indices(ns)
+        M = v[:, idx] * uscale
+    else:
+        diag_idx, re_idx, im_idx, lo_r, lo_c = psd._cplx_indices(ns)
+        M = np.zeros((v.shape[0], ns, ns), complex)
+        M[:, np.arange(ns), np.arange(ns)] = v[:, diag_idx]
+        M[:, lo_r, lo_c] = (v[:, re_idx] + 1j * v[:, im_idx]) / math.sqrt(2)
+        M[:, lo_c, lo_r] = np.conj(M[:, lo_r, lo_c])
+    w, V = np.linalg.eigh(M)
+    Mp = (V * np.maximum(w, 0.0)[:, None, :]) @ np.conj(np.swapaxes(V, 1, 2))
+    if not cplx:
+        return Mp[:, r, c].real * pscale
+    out = np.zeros_like(v)
+    out[:, diag_idx] = np.diagonal(Mp, axis1=1, axis2=2).real
+    out[:, re_idx] = Mp[:, lo_r, lo_c].real * math.sqrt(2.0)
+    out[:, im_idx] = Mp[:, lo_r, lo_c].imag * math.sqrt(2.0)
+    return out
+
+
+def _host_syncs(fn) -> int:
+    """Host synchronizations of one call of fn after a first call (which
+    fills the layouts' cached index tensors), counted from the warnings of
+    set_sync_debug_mode("warn")."""
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def psd_projection_rows(spec, lead: tuple, label: str) -> list:
+    """Each PSD and complex-PSD block size of `spec`, its blocks stacked as
+    the projection gets them (lead + (blocks of that size,)), projected on
+    the card in float64 and in float32 and held to the float64 numpy
+    projection of the same blocks (PSD_TOL); host wall ms per projection,
+    the card synchronized, and the host syncs of one projection. No CUDA
+    tensor goes to a CPU eigh."""
+    rows = []
+    for cplx, sizes, fn in ((False, spec.s, psd.proj_psd_batch),
+                            (True, spec.cs, psd.proj_cpsd_batch)):
+        for ns, ct in project._contiguous_runs(sizes):
+            shape = lead + (ct,)
+            count = int(np.prod(shape))
+            v = _psd_blocks(ns, count, cplx, seed=ns + 100 * cplx)
+            ref = _psd_numpy(v, ns, cplx)
+            x = torch.as_tensor(v.reshape(shape + (-1,)), device="cuda")
+            scale = 1.0 + np.abs(v).max()
+            row = {"family": "complex PSD" if cplx else "PSD", "ns": ns,
+                   "blocks": list(shape)}
+            for dtype, key in ((torch.float64, "f64"),
+                               (torch.float32, "f32")):
+                xd = x.to(dtype)
+                out = fn(xd, ns).double().reshape(count, -1).cpu().numpy()
+                err = float(np.abs(out - ref).max() / scale)
+                row[f"{key}_err"] = err
+                row[f"{key}_ms"] = _wall_ms(lambda: fn(xd, ns), 20)
+                row[f"{key}_syncs"] = _host_syncs(lambda: fn(xd, ns))
+                check(math.isfinite(err) and err <= PSD_TOL[dtype],
+                      f"PSD projection {label} {row['family']} {ns} "
+                      f"{key}: card eigh against numpy {err:.1e} > "
+                      f"{PSD_TOL[dtype]:.0e} (1 + |v|)")
+            print(f"PSD projection {label} {row['family']} ns={ns} blocks "
+                  f"{row['blocks']}: float64 {row['f64_ms']:.3f} ms "
+                  f"({row['f64_syncs']} host syncs), float32 "
+                  f"{row['f32_ms']:.3f} ms ({row['f32_syncs']} host syncs) "
+                  f"per projection (host wall); against numpy float64 "
+                  f"eigh {row['f64_err']:.1e} and {row['f32_err']:.1e} "
+                  f"(1 + |v|)")
+            rows.append(row)
+    return rows
+
+
+def _lane_result(sol) -> types.SimpleNamespace:
+    """One problem's solution as a batch of one for termination_failures."""
+    return types.SimpleNamespace(**{
+        k: torch.as_tensor(getattr(sol, k), device="cuda")[None]
+        for k in ("x", "y", "s")})
+
+
+def psd_large(p, spec) -> dict:
+    """The large PSD program through Workspace: direct mixed (K1 counted,
+    the forced float64 polish entered), direct pure float64 and indirect
+    mixed, each held against the planted optimum, SCS's termination test
+    recomputed in float64 and the pure float64 objective."""
+    out = {}
+    one = tuple(t.cuda()[None] for t in (p.problem.A, p.problem.b,
+                                         p.problem.c))
+    for label, stg in (("direct mixed", Settings(linsys="direct")),
+                       ("direct pure f64", Settings(linsys="direct",
+                                                    mixed_precision=False)),
+                       ("indirect mixed", Settings())):
+        torch.cuda.synchronize()
+        dsmatvec.launches = 0
+        ws = Workspace(p.problem, spec, p.cone_data, stg)
+        polish = []
+        enter = ws._enter_polish_phase
+
+        def spy(st, enter=enter, polish=polish):
+            res = enter(st)
+            polish.append(res[1] is not None)
+            return res
+
+        ws._enter_polish_phase = spy
+        sol, info = ws.solve()
+        torch.cuda.synchronize()
+        launches = dsmatvec.launches
+        err = abs(info.pobj - p.opt) / (1 + abs(p.opt))
+        fails = {k: int(v.sum()) for k, v in termination_failures(
+            one, _lane_result(sol), stg).items() if v.any()}
+        it = max(info.iter, 1)
+        print(f"large PSD {label}: {info.status}, {info.iter} iterations"
+              f"{f', {ws.tot_cg_its} CG iterations' if stg.linsys == 'indirect' else ''}"
+              f", setup {info.setup_time:.1f} ms, solve "
+              f"{info.solve_time:.1f} ms, {info.solve_time / it:.3f} "
+              f"ms/iteration, pobj {info.pobj!r} (planted {p.opt!r}, rel "
+              f"err {err:.2e}), K1 launches {launches} "
+              f"({launches / it:.2f} per iteration), polish phase entered "
+              f"{polish}, SCS's tests failed {fails or 'none'}")
+        check(info.status == "solved", f"large PSD {label}: {info.status}")
+        check(err <= 1e-3, f"large PSD {label}: objective error {err:.2e}")
+        check(not fails and bool(np.all(np.isfinite(sol.x))),
+              f"large PSD {label}: SCS's termination test fails {fails}, "
+              f"or x not finite")
+        if ws._mixed:
+            check(polish == [True], f"large PSD {label}: the forced float64 "
+                  f"polish was not entered ({polish})")
+            check(launches >= 2 * info.iter, f"large PSD {label}: K1 "
+                  f"launched {launches} times in {info.iter} iterations")
+        else:
+            check(launches == 0, f"large PSD {label}: pure f64 launched K1")
+        out[label] = {"iter": info.iter, "solve_ms": info.solve_time,
+                      "launches": launches, "pobj": info.pobj,
+                      "mixed": ws._mixed}
+    pure = out["direct pure f64"]["pobj"]
+    for label in ("direct mixed", "indirect mixed"):
+        agree = abs(out[label]["pobj"] - pure) / (1 + abs(pure))
+        check(out[label]["mixed"] and agree <= 1e-3,
+              f"large PSD {label}: not mixed, or {agree:.2e} from pure f64")
+    return out
+
+
+def psd_phase(card: str) -> dict:
+    """Phase 12 (see the module docstring)."""
+    t0 = time.perf_counter()
+    pspec_big = psd_cones.large_psd_spec()
+    pspec = psd_cones.headline_psd_spec()
+    rows = (psd_projection_rows(pspec_big, (), "large")
+            + psd_projection_rows(pspec, (1024,), "batch B=1024"))
+    pbatch = headline_batch(pspec, 1024, 1000)
+    B, m = pbatch[1].shape
+    gen = torch.Generator(device="cuda").manual_seed(62)
+    x = torch.randn(B, m, generator=gen, dtype=torch.float64, device="cuda")
+    r = 0.1 + torch.rand(B, m, generator=gen, dtype=torch.float64,
+                         device="cuda")
+    syncs = {f32: _host_syncs(lambda: project.proj_dual_cone_batched(
+        x, pspec, None, None, r, psd_f32=f32)) for f32 in (False, True)}
+    print(f"proj_dual_cone_batched ({B}, {m}) PSD layout: host syncs per "
+          f"projection float64 {syncs[False]}, float32 {syncs[True]}")
+    big_p = gen_planted(pspec_big, n=2048, seed=7, density=0.3)
+    big = psd_large(big_p, pspec_big)
+    # objectives: every lane passes SCS's termination test at eps 1e-4
+    # (verify_termination); against the planted optimum the float64 runs'
+    # gate is 2e-3 and float32 state's 5e-3, as phase 11's (float64 state
+    # lands 1.02e-3 away on an H100, PERF.md)
+    runs = {}
+    for label, kw, tol in (
+            ("mixed", {}, 5e-3),
+            ("mixed float64 state", dict(fast_f32=False), 2e-3),
+            ("pure f64", dict(mixed_precision=False), 2e-3)):
+        runs[label] = solve_batch(
+            pspec, pbatch, Settings(linsys="direct", chunk_iters=250, **kw),
+            f"PSD batch {label}", tol=tol)
+    mixed_pb, mixed64_pb = runs["mixed"], runs["mixed float64 state"]
+    fast = mixed_pb["by_phase"].get("fast", 0)
+    check(mixed_pb["f32_state"] and mixed_pb["pair"] >= 2 * fast > 0,
+          f"PSD batch: float32 state {mixed_pb['f32_state']}, "
+          f"{mixed_pb['pair']} K3 launches for {fast} fast steps")
+    check(mixed_pb["launches"] >= 2 * mixed_pb["steps"],
+          f"PSD batch: {mixed_pb['launches']} K2 launches < 2 x "
+          f"{mixed_pb['steps']} steps")
+    check(mixed64_pb["launches"] >= 4 * mixed64_pb["steps"]
+          and mixed64_pb["pair"] == 0,
+          f"PSD batch, float64 state: {mixed64_pb['launches']} K2 "
+          f"launches < 4 x {mixed64_pb['steps']} steps, or K3 launched")
+    for label in ("mixed", "mixed float64 state"):
+        run = runs[label]
+        check(run["polished"] == B and run["by_phase"].get("polish", 0) > 0,
+              f"PSD batch {label}: {run['polished']} of {B} lanes took the "
+              f"forced float64 polish")
+    pure_pb = runs["pure f64"]
+    check(pure_pb["polished"] == 0, "PSD batch pure f64 polished")
+    for label, tol in (("mixed", 5e-3), ("mixed float64 state", 1e-3)):
+        run = runs[label]
+        check(bool(np.array_equal(pure_pb["status"], run["status"])),
+              f"PSD batch: pure and {label} statuses differ")
+        agree = np.abs(run["pobj"] - pure_pb["pobj"]) / (
+            1 + np.abs(pure_pb["pobj"]))
+        print(f"PSD batch: {label} against pure f64, pobj rel diff max "
+              f"{agree.max():.3e}")
+        check(bool(np.all(agree <= tol)), f"PSD batch: {label} vs pure "
+              f"pobj differ by {agree.max():.2e}, above {tol:.0e}")
+    peasy = np.sort(np.argsort(mixed_pb["iters"], kind="stable")[:64])
+    warm_batch(pspec, lanes_of(pbatch, peasy), " PSD")
+    print(f"{card}, phase 12 (PSD) {time.perf_counter() - t0:.1f} s, peak "
+          f"device memory of the last batch "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"rows": rows, "syncs": syncs, "large": big, "batch": runs}
 
 
 # phase 2's rows; tools/torch_kernel_rows.py times the same rows for two
@@ -1041,6 +1315,11 @@ def main() -> int:
         print(json.dumps(_repeat_solve()))
         return 0
     t_start = time.perf_counter()
+
+    def done(phase: int) -> None:
+        print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1054,6 +1333,8 @@ def main() -> int:
         print(f"  {name}: {res['seconds']:.1f} s")
         for line in _build.resources(res["log"]):
             print(f"    {line}")
+
+    done(1)
 
     # 2. K1-K3 against their plain versions at the main path's shapes and
     # at one shape for each variant the launcher can pick
@@ -1094,6 +1375,8 @@ def main() -> int:
           f"{host_us['ds_matvec']:.1f} us, torch.mv {host_us['torch.mv']:.1f}"
           f" us")
 
+    done(2)
+
     # 3. the main path: the large SOCP, counts set to 0 just before
     spec = make_spec(n_big, 0.1, np.random.RandomState(7))
     big_p = gen_planted(spec, n=n_big, seed=7, density=0.3)
@@ -1106,10 +1389,14 @@ def main() -> int:
           f"{100 * big['launches'] * per_launch / big['solve_ms']:.1f}% "
           f"of solve time")
 
+    done(3)
+
     # 4. the headline problem
     head = HEADLINE
     solve_planted(gen_planted(head, n=100, seed=1000, density=0.1), head,
                   "headline")
+
+    done(4)
 
     # 5. the headline batch, mixed (the K2 and K3 counts set to 0 just
     # before): its fast phase runs float32 state, K2 for A' z and A x and
@@ -1159,6 +1446,8 @@ def main() -> int:
     print(f"{card}, peak device memory of the last batch "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    done(5)
+
     # 6. warm re-solves of a batch in BatchWorkspace's default mode
     # (float32 state), then 64 lanes below the fast floor: every lane
     # polishes, the polish phase on K2 (four a step). The warm batch takes
@@ -1190,17 +1479,20 @@ def main() -> int:
           f"eps 1e-7 batch: K2 {tight['launches']}, K3 {tight['pair']} "
           f"launches for {fast} fast and {pol} polish steps")
 
+    done(6)
+
     # 7. the indirect backend, the default linsys: the large SOCP mixed
-    # and pure (K1 counted around each), then the first 256 lanes of the
+    # and pure (K1 counted around each), then the first 8 lanes of the
     # headline batch in the default mode (mixed, float32 state; K2 counted
     # around it) and mixed with float64 state. The float32-state run's
-    # objective gate is the float32-state direct batch's (5e-3). Both
-    # batches were B = 1024 until the mixed-cone phases below took their
-    # time (tools/torch_batch_trees.py runs the full batch).
-    solve_indirect(big_p, spec, "large SOCP", big["pobj64"])
-    head256 = tuple(t[:256] for t in batch)
-    ind_b = solve_batch(head, head256, Settings(chunk_iters=250),
-                        "headline batch B=256 indirect (default: mixed, "
+    # objective gate is the float32-state direct batch's (5e-3). Eight
+    # lanes keep the script inside its limit: with float32 state the 128
+    # first lanes took ~110 s, ~95 s of it one lane (seed 1014, 8000
+    # iterations; PERF.md); tools/torch_batch_trees.py runs the full batch.
+    big_ind = solve_indirect(big_p, spec, "large SOCP", big["pobj64"])
+    head8 = tuple(t[:8] for t in batch)
+    ind_b = solve_batch(head, head8, Settings(chunk_iters=250),
+                        "headline batch B=8 indirect (default: mixed, "
                         "float32 state)", tol=5e-3)
     check(ind_b["f32_state"], "headline batch indirect: the default mixed "
           "solve did not take the float32-state fast phase")
@@ -1208,9 +1500,9 @@ def main() -> int:
           f"headline batch indirect: {ind_b['launches']} K2 launches < 2 x "
           f"{ind_b['steps']} steps, or K3 launched")
     check(ind_b["cg"] > 0, "headline batch indirect: no CG iteration")
-    ind64_b = solve_batch(head, head256,
+    ind64_b = solve_batch(head, head8,
                           Settings(chunk_iters=250, fast_f32=False),
-                          "headline batch B=256 indirect mixed float64 "
+                          "headline batch B=8 indirect mixed float64 "
                           "state")
     check(not ind64_b["f32_state"] and ind64_b["cg"] > 0,
           "headline batch indirect, float64 state: float32 state, or no CG "
@@ -1218,6 +1510,8 @@ def main() -> int:
     check(ind64_b["launches"] >= 2 * ind64_b["steps"],
           f"headline batch indirect, float64 state: {ind64_b['launches']} "
           f"K2 launches < 2 x {ind64_b['steps']} steps")
+
+    done(7)
 
     # 8. the roofline probe, K5's path (K5 counted around it: the
     # warm-up's launches and each graph replay's), and K4's entry point at
@@ -1249,10 +1543,15 @@ def main() -> int:
     check(k4_launches == 1 and rel <= 1e-13,
           f"ds_matmul: {k4_launches} launches, relative error {rel:.3e}")
 
+    done(8)
+
     # 10. repeatability (ROADMAP section 3 A): the indirect pure float64
-    # large SOCP twice here and once in a fresh process, bitwise; the 64
+    # large SOCP twice here (phase 7's solve the first) and once in a
+    # fresh process, bitwise; the 64
     # easiest lanes of phase 5 twice in the default mode, lane by lane
-    repeat = repeat_check(head, lanes_of(batch, easy))
+    repeat = repeat_check(head, lanes_of(batch, easy), big_ind["pure f64"])
+
+    done(10)
 
     # 11. the mixed-cone configurations: box, exp and power cones beside
     # zero, nonnegative and SOC rows. First each cone family as a CUDA
@@ -1284,7 +1583,7 @@ def main() -> int:
     # objectives: every lane passes SCS's termination test at eps 1e-4
     # (verify_termination). The pure float64 solve itself lands 1.54e-3
     # (1 + |opt|) from the planted optimum on seed 1973 (6025 iterations)
-    # on an H100: the distance SCS's eps leaves on this family's lane, so
+    # on an H100: the distance SCS's eps leaves on this family's lanes, so
     # the float64 runs' gate is 2e-3 (float32 state: 5e-3, its lanes up
     # to 1.73e-3 away, as phase 5). Against the pure float64 run, float64
     # state agrees to 1.2e-7 with every lane's iteration count equal,
@@ -1321,10 +1620,25 @@ def main() -> int:
     print(f"{card}, peak device memory of the last batch "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    done(11)
+
+    # 12. the PSD configurations (`models/psd_cones.py`): each PSD and
+    # complex-PSD block size's card eigh against float64 numpy, with its
+    # host syncs and times; the large PSD program (direct mixed with K1
+    # counted, direct pure float64, indirect mixed) and the PSD batch of
+    # 1024 (float32 state with K2 and K3 counted, float64 state, pure
+    # float64), every mixed lane through the forced float64 polish, and
+    # BatchWorkspace on 64 lanes
+    psd_phase(card)
+
+    done(12)
+
     # 9. where the time of an iteration goes, mixed and pure, on the large
-    # SOCP (100 iterations each): first unprofiled, in turns, then under
-    # the profiler. Last: the profiler's tracing may slow launches after
-    # it stops, so nothing timed above runs after it.
+    # SOCP (100 iterations each unprofiled, in turns, then 25 under the
+    # profiler: with 100 this phase took 192 s on an H100, most of it
+    # outside the profiled solves, in the profiler's own processing).
+    # Last: the profiler's tracing may slow launches after it stops, so
+    # nothing timed above runs after it.
     turns = {True: [], False: []}
     for mixed in (True, False, False, True):
         turns[mixed].append(warm_workspace(big_p, spec, mixed, 100)[1])
@@ -1332,15 +1646,17 @@ def main() -> int:
           f"mixed: mixed {turns[True][0]:.3f}, {turns[True][1]:.3f} "
           f"ms/iteration; pure f64 {turns[False][0]:.3f}, "
           f"{turns[False][1]:.3f} ms/iteration")
-    profile_iterations(big_p, spec, True, 100, "large SOCP mixed")
-    profile_iterations(big_p, spec, False, 100, "large SOCP pure f64")
-    profile_iterations(big_p, spec, True, 100, "large SOCP indirect mixed",
+    profile_iterations(big_p, spec, True, 25, "large SOCP mixed")
+    profile_iterations(big_p, spec, False, 25, "large SOCP pure f64")
+    profile_iterations(big_p, spec, True, 25, "large SOCP indirect mixed",
                        linsys="indirect")
-    profile_batched(head, batch, 50)
-    profile_iterations(mbig_p, mspec_big, True, 100,
+    profile_batched(head, batch, 25)
+    profile_iterations(mbig_p, mspec_big, True, 25,
                        "large mixed cones mixed")
-    profile_batched(mspec, mbatch, 50, " mixed cones")
+    profile_batched(mspec, mbatch, 25, " mixed cones")
     anderson_qr_times(1024, 501 + 10, 10)
+
+    done(9)
 
     main_case = cases[0]
     kernels = [{

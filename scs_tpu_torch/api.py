@@ -304,15 +304,28 @@ class Workspace:
         and, if so, re-derive the factor and the g cache from the fast
         phase's state. The polish keeps the mixed linear solver, so the
         factor keeps its structure. Returns (state, the polish phase's
-        Iteration, or None where no polish runs)."""
+        Iteration, or None where no polish runs).
+
+        As in the JAX package, a spec with PSD cones
+        (`ConeSpec.f32_polish_cones`) always polishes a SOLVED or
+        certificate status: the fast phase's float32 eigh can break exact
+        complementarity by ~1e-3 scale on clustered spectra. Where that is
+        the polish's only reason (SOLVED at targets at or above the fast
+        floor), the JAX package runs its exp and power cones in float32
+        (exp_f32=True); the port's polish projects every cone, exp
+        included, in float64 (ROADMAP section 3, R4: float32 exp can fail
+        SCS's gap test after the finishing re-projection)."""
         stg = self.stg
         floor = config.MIXED_FAST_FLOOR
+        has_psd = self.spec.f32_polish_cones
         needs = False
         if st.iter < stg.max_iters:
             if st.status == config.SOLVED:
-                needs = stg.eps_abs < floor or stg.eps_rel < floor
+                needs = (stg.eps_abs < floor or stg.eps_rel < floor
+                         or has_psd)
             elif st.status in (config.INFEASIBLE, config.UNBOUNDED):
-                needs = stg.eps_infeas < config.MIXED_CERT_FLOOR
+                needs = (stg.eps_infeas < config.MIXED_CERT_FLOOR
+                         or has_psd)
             elif st.status == config.UNFINISHED:
                 needs = True
         if not needs:

@@ -2,25 +2,34 @@
 
 Counterpart of `scs_tpu/cones/project.py` (SCS: src/cones.c:1340-1494 and
 the Moreau wrapper at :1552-1596) for the cones ported so far: zero,
-nonnegative, box, second-order, exponential (primal and dual) and power.
-A spec with any other cone raises `NotImplementedError` (ROADMAP queue 1,
-item 11).
+nonnegative, box, second-order, PSD, complex PSD, exponential (primal and
+dual) and power. A spec with a spectral cone (logdet, nuclear, ell1,
+sum-largest) raises `NotImplementedError` (ROADMAP queue 1, item 11).
 
 One function serves one problem (x (m,)) and a batch (x (B, m), each row
 one problem with its own metric r_y, box bounds and box warm start): every
-family projects along the last axis. The box, exp and power projections
-are fixed-count masked loops; on the card each runs as a CUDA graph
-(`graphs.run`), on the CPU eagerly. Precision: the box and SOC cones
-project in the dtype of x; the exp cones in float64, or in float32 where
-`exp_f32` asks for it on a float64 x (`Settings.exp_f32=True`); the
-power cones always in float64. The JAX package projects exp and power in
-float32 on the mixed fast phase and with float32 state; three of those
-float32 projections fail (ROADMAP section 3, R4): its float32 power
-Newton lands on wrong roots for some triples; with float32 state its
-float32 exp projection leaves lanes of the mixed-cone batch unconverged
-at 100000 iterations that converge in 200-525 with the exp rows in
-float64; with float64 state, the finishing float64 re-projection moves
-the returned (x, y, s) of float32-exp lanes outside SCS's gap test.
+family projects along the last axis, and each run of equal PSD block sizes
+is one batched eigh over every block and lane (`cones/psd.py`). The box,
+exp and power projections are fixed-count masked loops; on the card each
+runs as a CUDA graph (`graphs.run`), on the CPU eagerly; eigh runs
+outside any graph.
+
+Precision: the box and SOC cones project in the dtype of x; the PSD and
+complex-PSD cones too, or in float32 where `psd_f32` asks for it (the
+mixed fast phase, as in the JAX package; `ConeSpec.f32_polish_cones`
+then forces the float64 polish); the exp cones in float64, or in float32
+where `exp_f32` asks for it on a float64 x (`Settings.exp_f32=True`);
+the power cones always in float64. Deviations from the JAX package's
+float32 fast phase, which projects exp and power in float32 with mixed
+(ROADMAP section 3, R4): its float32 power Newton lands on wrong roots
+for some triples; with float32 state its float32 exp projection leaves
+lanes of the mixed-cone batch unconverged at 100000 iterations that
+converge in 200-525 with the exp rows in float64; with float64 state
+and float32 exp, the finishing float64 re-projection lifts some lanes'
+gap above SCS's bound in both packages, so the port's polish projects
+exp in float64 even where the JAX package's exactness-only polish keeps
+it in float32. The PSD cones follow the reference (no R5: their float32
+eigh fails on no lane of the PSD configurations).
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import numpy as np
 import torch
 
 from ..types import ConeData, ConeSpec
-from . import box, exp, graphs, power, soc
+from . import box, exp, graphs, power, psd, soc
 
 
 def _contiguous_runs(sizes):
@@ -66,25 +75,27 @@ def cone_boundaries(spec: ConeSpec) -> list[int]:
 
 def require_supported(spec: ConeSpec) -> None:
     """Raise unless every cone of `spec` is one this package projects."""
-    other = [name for name in ("s", "cs", "d", "nuc_m", "ell1", "sl_n")
+    other = [name for name in ("d", "nuc_m", "ell1", "sl_n")
              if getattr(spec, name)]
     if other:
         raise NotImplementedError(
             f"cones {other} are not ported yet (ROADMAP queue 1, item 11); "
             "scs_tpu_torch projects zero, nonnegative, box, second-order, "
-            "exponential and power cones")
+            "PSD, complex PSD, exponential and power cones")
 
 
 @dataclasses.dataclass(frozen=True)
 class ConeLayout:
     """Offsets of the ported cone families within the stacked m-vector
-    (the PSD and spectral families, not ported, take no rows)."""
+    (the spectral families, not ported, take no rows)."""
 
     spec: ConeSpec
     z_off: int
     l_off: int
     box_off: int
     q_off: int
+    s_off: int
+    cs_off: int
     exp_off: int
     pow_off: int
     total: int
@@ -94,10 +105,12 @@ class ConeLayout:
         require_supported(spec)
         box_off = spec.z + spec.l
         q_off = box_off + spec.bsize
-        exp_off = q_off + sum(spec.q)
+        s_off = q_off + sum(spec.q)
+        cs_off = s_off + sum(si * (si + 1) // 2 for si in spec.s)
+        exp_off = cs_off + sum(ci * ci for ci in spec.cs)
         pow_off = exp_off + 3 * (spec.ep + spec.ed)
-        return ConeLayout(spec, 0, spec.z, box_off, q_off, exp_off, pow_off,
-                          pow_off + 3 * spec.psize)
+        return ConeLayout(spec, 0, spec.z, box_off, q_off, s_off, cs_off,
+                          exp_off, pow_off, pow_off + 3 * spec.psize)
 
 
 @functools.lru_cache(maxsize=64)
@@ -114,11 +127,13 @@ def _pow_exponents(p: tuple, dtype, device: torch.device) -> torch.Tensor:
 def proj_cone(x: torch.Tensor, spec: ConeSpec,
               cone_data: Optional[ConeData] = None,
               box_t_warm: Optional[torch.Tensor] = None,
-              r_y: Optional[torch.Tensor] = None, exp_f32: bool = False):
+              r_y: Optional[torch.Tensor] = None, exp_f32: bool = False,
+              psd_f32: bool = False):
     """Project x (m,) or each row of x (B, m) onto the primal cone K (in
     the r_y-inverse metric for the box). Returns (projection, new box
     warm start); box_t_warm (or (B,)) defaults to 1 and passes through
-    where there is no box."""
+    where there is no box. `psd_f32`: the PSD and complex-PSD blocks'
+    eigh and reconstruction in float32 (the mixed fast phase's)."""
     lay = ConeLayout.make(spec)
     if x.shape[-1] != lay.total:
         raise ValueError(f"x has {x.shape[-1]} rows, the cones {lay.total}")
@@ -157,6 +172,17 @@ def proj_cone(x: torch.Tensor, spec: ConeSpec,
             parts.append(soc.proj_soc_hetero(seg, q_sizes))
         else:
             parts.append(soc.proj_soc_hetero_batched(seg, q_sizes))
+    # one batched eigh per run of equal block sizes, over every lane
+    for off, sizes, cplx in ((lay.s_off, spec.s, False),
+                             (lay.cs_off, spec.cs, True)):
+        fn = psd.proj_cpsd_batch if cplx else psd.proj_psd_batch
+        for ns, ct in _contiguous_runs(sizes):
+            width = ns * ns if cplx else ns * (ns + 1) // 2
+            if width:
+                seg = x[..., off:off + width * ct].reshape(lead + (ct, width))
+                parts.append(fn(seg, ns, f32_eig=psd_f32)
+                             .reshape(lead + (width * ct,)))
+            off += width * ct
     # exp in float32 only where exp_f32 asks for it on a float64 x
     n_exp = spec.ep + spec.ed
     if n_exp:
@@ -180,7 +206,8 @@ def proj_cone(x: torch.Tensor, spec: ConeSpec,
 def proj_dual_cone(x: torch.Tensor, spec: ConeSpec,
                    cone_data: Optional[ConeData],
                    box_t_warm: Optional[torch.Tensor],
-                   r_y: Optional[torch.Tensor], exp_f32: bool = False):
+                   r_y: Optional[torch.Tensor], exp_f32: bool = False,
+                   psd_f32: bool = False):
     """Moreau decomposition under the diagonal R metric (cones.c:1552-1596):
 
         Pi_C^R(x) = x + R^{-1} Pi_{C*}^{R^{-1}}(-R x)
@@ -190,7 +217,7 @@ def proj_dual_cone(x: torch.Tensor, spec: ConeSpec,
     """
     xr = -x if r_y is None else -x * r_y
     proj, new_warm = proj_cone(xr, spec, cone_data, box_t_warm, r_y,
-                               exp_f32)
+                               exp_f32, psd_f32)
     out = proj + x if r_y is None else proj / r_y + x
     return out, new_warm
 

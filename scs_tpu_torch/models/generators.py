@@ -5,8 +5,8 @@ Counterpart of `scs_tpu/models/generators.py` for the cones this package
 projects. Everything is drawn with numpy's RandomState in the JAX
 package's order, so a seed gives bit-identical A, b and c in both
 packages wherever the dual projection is the numpy one (zero,
-nonnegative and SOC layouts); a layout with box, exp or power cones
-projects through this package's `proj_dual_cone` in float64 on the CPU,
+nonnegative and SOC layouts); a layout with box, PSD, complex-PSD, exp
+or power cones projects through this package's `proj_dual_cone` in float64 on the CPU,
 as the JAX package projects through its own, so the two agree to the
 projections' round-off. The planted pair mirrors SCS's test harness
 (test/problem_utils.h:22-81): y in K*, s = y - z in K with y's = 0, a
@@ -67,7 +67,8 @@ def _project_dual(z: np.ndarray, spec: ConeSpec,
     """Projection onto the dual cone: numpy for zero/nonnegative/SOC
     layouts, else `proj_dual_cone` in float64 on the CPU."""
     require_supported(spec)
-    if not (spec.bsize or spec.ep or spec.ed or spec.p):
+    if not (spec.bsize or spec.s or spec.cs or spec.ep or spec.ed
+            or spec.p):
         return _project_dual_np(z, spec)
     bu = torch.as_tensor(np.asarray(cone_data.bu), dtype=torch.float64)
     bl = torch.as_tensor(np.asarray(cone_data.bl), dtype=torch.float64)

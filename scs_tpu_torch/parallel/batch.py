@@ -17,7 +17,9 @@ lockstep Python loop of `solver_batched`:
 Mixed precision (the default on the card) solves in two phases, as the
 JAX package does: a fast phase against targets floored at
 MIXED_FAST_FLOOR, a repair of the lanes whose true targets lie below the
-floor, and a polish phase on those lanes only, with float64 state. The
+floor (with PSD cones, of every lane that terminated: their float32
+eigh on the fast phase can break exact complementarity), and a polish
+phase on those lanes only, with float64 state and float64 cones. The
 fast phase runs with float32 state (`Settings.fast_f32`, auto: on with
 mixed) on a float32 view of the problem: A, K, b, c and the state cast to
 float32, the double-single splits kept, so that its residual checks, and
@@ -26,7 +28,8 @@ K3; each backend converts its factor between the two regimes
 (`enter_f32_state`, `leave_f32_state`). The state returns to float64 at
 the phase's end. The exp and power cones project in float64 in every
 phase unless `Settings.exp_f32=True` (`cones/project.py` says where this
-leaves the reference). Where a mixed solve has exp or power cones, or
+leaves the reference); the PSD cones project in float32 on the fast
+phase, as in the reference. Where a mixed solve has exp or power cones, or
 ran float32 state, every lane's dual block is re-projected in float64
 at the finish (`solver.moreau_repolish`).
 
@@ -254,19 +257,26 @@ def f64_state(st: BatchedState, backend) -> BatchedState:
 
 def _polish_settings(stg: Settings) -> Settings:
     """Settings of the polish phase: the mixed linear solver kept, every
-    cone in float64 (the JAX package's `_polish_settings`)."""
+    cone in float64 (the JAX package's `_polish_settings`). The JAX
+    package's polish that only restores the PSD cones' exactness runs exp
+    in float32; the port's projects exp in float64 there too (ROADMAP
+    section 3, R4)."""
     return dataclasses.replace(stg, mixed_precision=True, cone_f32=False,
                                exp_f32=None)
 
 
-def _needs_polish(stg: Settings, status: torch.Tensor) -> torch.Tensor:
+def _needs_polish(spec: ConeSpec, stg: Settings,
+                  status: torch.Tensor) -> torch.Tensor:
     """Host bool (B,): lanes whose fast-phase termination does not meet the
-    caller's targets, which lie below the fast floors."""
+    caller's targets, which lie below the fast floors, and, where the spec
+    has PSD cones (`ConeSpec.f32_polish_cones`: their float32 eigh can
+    break exact complementarity), every lane that terminated."""
     floor = config.MIXED_FAST_FLOOR
+    has_f32 = spec.f32_polish_cones
     needs = torch.zeros_like(status, dtype=torch.bool)
-    if stg.eps_abs < floor or stg.eps_rel < floor:
+    if stg.eps_abs < floor or stg.eps_rel < floor or has_f32:
         needs |= status == config.SOLVED
-    if stg.eps_infeas < config.MIXED_CERT_FLOOR:
+    if stg.eps_infeas < config.MIXED_CERT_FLOOR or has_f32:
         needs |= ((status == config.INFEASIBLE)
                   | (status == config.UNBOUNDED))
     return needs
@@ -275,14 +285,15 @@ def _needs_polish(stg: Settings, status: torch.Tensor) -> torch.Tensor:
 def make_repair_fn(spec: ConeSpec, stg: Settings, *, device="cuda"):
     """repair(data, state) -> state: the transition from the fast phase
     into the polish phase. The lanes whose targets lie below the fast
-    floor get their factor and g re-derived and their status reset to
+    floor (and, with PSD cones, every terminated lane: `_needs_polish`)
+    get their factor and g re-derived and their status reset to
     UNFINISHED; every lane's cadence restarts at 0 (the polish phase's
     lockstep counter). `stg` is the caller's settings."""
     dev = _resolve_device(device)
     it = BatchedIteration(spec, _polish_settings(stg), True)
 
     def repair(data: ProblemData, st: BatchedState) -> BatchedState:
-        needs = _needs_polish(stg, st.status)
+        needs = _needs_polish(spec, stg, st.status)
         if bool(needs.any()):
             rows = Rows(torch.nonzero(needs).flatten(), dev)
             sub = take_rows(data, rows)
@@ -464,7 +475,8 @@ class _Machinery:
                                 time.perf_counter() - t0))
             if stop is not None or sub.size == 0:
                 st = settle(st)
-                return st, _needs_polish(stg, st.status).numpy(), stop
+                return st, _needs_polish(self.spec, stg,
+                                         st.status).numpy(), stop
             new_bucket = max(1 << (int(sub.size) - 1).bit_length(),
                              min_bucket)
             if new_bucket < bucket:
@@ -493,7 +505,7 @@ class _Machinery:
             status = torch.where(status == config.UNFINISHED,
                                  config.SIGINT, status)
         elif stop == "timeout" and self.mixed:
-            needs = _needs_polish(self.stg, status)
+            needs = _needs_polish(self.spec, self.stg, status)
             down = torch.full_like(status, config.UNFINISHED)
             down = torch.where(status == config.SOLVED,
                                config.SOLVED_INACCURATE, down)

@@ -350,9 +350,12 @@ class Iteration:
         self.spec = spec
         self.stg = stg
         self.mixed = mixed
-        # float32 exp projections only where Settings.exp_f32 asks for
-        # them: the JAX package also turns them on with mixed
-        # (solver.py:440-447); the port does not (ROADMAP section 3, R4)
+        # float32 PSD projections follow mixed unless Settings.cone_f32
+        # says otherwise (the JAX package's solver.py:440-447); float32
+        # exp projections only where Settings.exp_f32 asks for them: the
+        # JAX package also turns them on with mixed, the port does not
+        # (ROADMAP section 3, R4)
+        self.psd32 = mixed if stg.cone_f32 is None else bool(stg.cone_f32)
         self.exp32 = bool(stg.exp_f32)
         self.backend = get_backend(stg.linsys)
         self.is_indirect = stg.linsys == "indirect"
@@ -403,7 +406,8 @@ class Iteration:
         u_pre = 2.0 * u_t - st.v
         y_proj, box_t = proj_dual_cone(u_pre[n:n + m], self.spec, data.cone,
                                        st.box_t_warm, st.diag_r[n:n + m],
-                                       exp_f32=self.exp32)
+                                       exp_f32=self.exp32,
+                                       psd_f32=self.psd32)
         if st.iter < config.FEASIBLE_ITERS:
             tau = torch.ones((), dtype=u_pre.dtype, device=u_pre.device)
         else:

@@ -367,7 +367,10 @@ class BatchedIteration:
         self.stg = stg
         self.mixed = mixed
         self.f32_state = f32_state
-        self.exp32 = bool(stg.exp_f32)      # as `solver.Iteration`
+        # as `solver.Iteration`; with float32 state x is float32 and the
+        # PSD cones project in float32 whatever psd32 says
+        self.psd32 = mixed if stg.cone_f32 is None else bool(stg.cone_f32)
+        self.exp32 = bool(stg.exp_f32)
         self.backend = get_backend(stg.linsys)
         self.is_indirect = stg.linsys == "indirect"
         self.use_aa = stg.acceleration_lookback > 0
@@ -516,7 +519,7 @@ class BatchedIteration:
         u_pre = 2.0 * u_t - v
         y_proj, box_t = proj_dual_cone_batched(
             u_pre[:, n:n + m], spec, data.cone, st.box_t_warm,
-            dr[:, n:n + m], exp_f32=self.exp32)
+            dr[:, n:n + m], exp_f32=self.exp32, psd_f32=self.psd32)
         tau_c = torch.clamp_min(u_pre[:, l - 1], 0.0)
         if pin_dev is not None:
             tau_c = torch.where(pin_dev, 1.0, tau_c)

@@ -48,8 +48,13 @@ class ConeSpec:
     blocks, complex-PSD blocks, primal exp triples, dual exp triples, power
     triples, then the spectral cones. All fields are kept so that any spec of
     the JAX package converts; the solver projects the zero, nonnegative,
-    box, second-order, exponential and power cones so far
-    (`cones.project`).
+    box, second-order, PSD, complex-PSD, exponential and power cones so far
+    (`cones.project`). The mixed fast phase projects the PSD cones in
+    float32 and polishes in float64 after, as the JAX package does; it
+    leaves the JAX package's float32 fast phase for the exp and power
+    cones, which project in float64 (exp in float32 only with
+    `Settings.exp_f32=True`, and never in the polish; ROADMAP section 3,
+    R4).
     """
 
     z: int = 0                      # zero cone (equalities)
@@ -71,6 +76,17 @@ class ConeSpec:
     @property
     def psize(self) -> int:
         return len(self.p)
+
+    @property
+    def f32_polish_cones(self) -> bool:
+        """True when terminated lanes must take at least one float64
+        polish leg even at loose eps targets: the PSD/spectral family
+        only. A float32 eigh's error on a clustered spectrum can reach
+        ~1e-3 scale, above the usual 1e-4 targets, so the float64 phase
+        re-projects to restore exact complementarity (s'y = 0 up to
+        float64 round-off)."""
+        return bool(self.s or self.cs or self.d or self.nuc_m
+                    or self.sl_n)
 
     def dims(self) -> int:
         """Total number of rows m implied by the cone layout."""

@@ -27,6 +27,9 @@ import numpy as np
 import pytest
 import torch
 
+# xdist workers share the cores: one torch thread each, not one per core
+torch.set_num_threads(1)
+
 from scs_tpu import config as j_config
 from scs_tpu.parallel import make_batch_solver as j_make_batch_solver
 from scs_tpu.parallel import make_chunked_batch_solver as j_make_chunked

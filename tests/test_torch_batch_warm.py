@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+# xdist workers share the cores: one torch thread each, not one per core
+torch.set_num_threads(1)
+
 from scs_tpu_torch import ConeSpec, Settings, accel, config
 from scs_tpu_torch import equilibrate as eq
 from scs_tpu_torch.cones import project

@@ -33,6 +33,9 @@ import numpy as np
 import pytest
 import torch
 
+# xdist workers share the cores: one torch thread each, not one per core
+torch.set_num_threads(1)
+
 import scs_tpu
 from scs_tpu import models as j_models
 from scs_tpu.cones import exp as j_exp
@@ -252,8 +255,8 @@ def test_proj_dual_cone_matches_jax(exp_f32):
 
 def test_cpu_runs_eagerly_and_layout():
     """On the CPU `graphs.run` is the plain call (no capture); the layout
-    matches the JAX package's offsets; the PSD and spectral cones still
-    raise with item 11."""
+    matches the JAX package's offsets; the spectral cones still raise
+    with item 11."""
     spec = convert.spec_from_dict(dataclasses.asdict(MIXED))
     before = (graphs.captures, graphs.replays)
     x = t(np.random.RandomState(2).randn(spec.dims()))
@@ -263,10 +266,11 @@ def test_cpu_runs_eagerly_and_layout():
     assert float(ta) >= 0 and a.shape == x.shape
     jl = j_project.ConeLayout.make(MIXED)
     tl = project.ConeLayout.make(spec)
-    for name in ("z_off", "l_off", "box_off", "q_off", "exp_off", "pow_off",
-                 "total"):
+    for name in ("z_off", "l_off", "box_off", "q_off", "s_off", "cs_off",
+                 "exp_off", "pow_off", "total"):
         assert getattr(tl, name) == getattr(jl, name), name
-    for bad in (dict(s=(2,)), dict(cs=(2,)), dict(d=(2,)), dict(ell1=(3,))):
+    for bad in (dict(nuc_m=(2,), nuc_n=(2,)), dict(sl_n=(2,), sl_k=(1,)),
+                dict(d=(2,)), dict(ell1=(3,))):
         with pytest.raises(NotImplementedError, match="item 11"):
             project.require_supported(dataclasses.replace(spec, **bad))
 

@@ -9,10 +9,14 @@ where only PyTorch is installed:
 
 import functools
 import math
+import types
 
 import numpy as np
 import pytest
 import torch
+
+# xdist workers share the cores: one torch thread each, not one per core
+torch.set_num_threads(1)
 
 from scs_tpu_torch import ConeSpec, Settings, Workspace
 from scs_tpu_torch.models import gen_planted
@@ -385,29 +389,49 @@ def test_read_rowsum_kernel_matches_plain(cuda, shape, b_scale):
 def test_indirect_solve_on_the_card_matches_the_plain_version(cuda):
     """The default settings (the indirect backend, mixed on the card)
     through K1 against the same solve on the CPU through its plain
-    version, and the pure float64 indirect solve on both devices: the
-    same status, objectives within 1e-4 (1 + |pobj|), iteration counts
-    within [0.8, 1.25] (CG stops on data-dependent tests, and the two
-    devices sum in other orders)."""
+    version, and the pure float64 indirect solve on both devices, over
+    the planted instances of seeds 3-9: on every instance the same
+    status, SCS's termination test passed by the card's point,
+    recomputed in float64 (chip_smoke.termination_failures), and the
+    card's objective within eps (eps_abs + eps_rel |opt|) of the planted
+    optimum; over the instances, the median of the card's iteration count
+    over the CPU's within [0.8, 1.25]. One instance's count is no measure
+    of the card: the two devices sum in other orders, CG stops on
+    data-dependent tests, and a last-bit change of b moves seed 3's count
+    over 175-225 (tools/torch_iteration_spread.py;
+    tools/torch_card_trajectory.py shows where the card's trajectory
+    leaves the CPU's)."""
+    from chip_smoke import termination_failures
+
     spec = ConeSpec(z=5, l=20, q=(5, 5, 5, 10))
-    p = gen_planted(spec, n=30, seed=3, density=0.3)
     for stg, cpu_stg in ((Settings(), Settings(mixed_precision=True)),
                          (Settings(mixed_precision=False),
                           Settings(mixed_precision=False))):
-        dsmatvec.launches = 0
-        ws = Workspace(p.problem, spec, p.cone_data, stg)
-        _, info = ws.solve()
-        launches = dsmatvec.launches
-        cpu = Workspace(p.problem, spec, p.cone_data, cpu_stg, device="cpu",
-                        ds_split=cpu_stg.mixed_precision)
-        _, ref = cpu.solve()
-        assert info.status == ref.status == "solved"
-        assert info.lin_sys_solver == "dense-indirect-jacobi-pcg"
-        assert ws.tot_cg_its > info.iter
-        if ws._mixed:
-            assert launches >= 2 * info.iter
-        assert abs(info.pobj - ref.pobj) <= 1e-4 * (1 + abs(ref.pobj))
-        assert 0.8 <= info.iter / ref.iter <= 1.25
+        ratios = []
+        for seed in range(3, 10):
+            p = gen_planted(spec, n=30, seed=seed, density=0.3)
+            dsmatvec.launches = 0
+            ws = Workspace(p.problem, spec, p.cone_data, stg)
+            sol, info = ws.solve()
+            launches = dsmatvec.launches
+            cpu = Workspace(p.problem, spec, p.cone_data, cpu_stg,
+                            device="cpu", ds_split=cpu_stg.mixed_precision)
+            _, ref = cpu.solve()
+            assert info.status == ref.status == "solved", seed
+            assert info.lin_sys_solver == "dense-indirect-jacobi-pcg"
+            assert ws.tot_cg_its > info.iter
+            if ws._mixed:
+                assert launches >= 2 * info.iter
+            eps = stg.eps_abs + stg.eps_rel * abs(p.opt)
+            assert abs(info.pobj - p.opt) <= eps, (seed, info.pobj, p.opt)
+            batch = tuple(getattr(p.problem, k).to(cuda)[None] for k in "Abc")
+            res = types.SimpleNamespace(**{
+                k: torch.as_tensor(getattr(sol, k), device=cuda)[None]
+                for k in "xys"})
+            fails = termination_failures(batch, res, stg)
+            assert not any(m.any() for m in fails.values()), (seed, fails)
+            ratios.append(info.iter / ref.iter)
+        assert 0.8 <= float(np.median(ratios)) <= 1.25, ratios
 
 
 def test_indirect_batch_on_the_card_matches_the_plain_version(cuda):

@@ -20,6 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+# xdist workers share the cores: one torch thread each, not one per core
+torch.set_num_threads(1)
+
 import scs_tpu  # noqa: F401  (x64 + matmul precision config)
 from scs_tpu.ops import dsmatvec as jax_ds
 from scs_tpu.ops import dsreduce as jax_red

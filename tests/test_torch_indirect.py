@@ -19,6 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+# xdist workers share the cores: one torch thread each, not one per core
+torch.set_num_threads(1)
+
 import scs_tpu
 from scs_tpu import models as j_models
 from scs_tpu.linsys import Mats as JMats

@@ -19,6 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+# xdist workers share the cores: one torch thread each, not one per core
+torch.set_num_threads(1)
+
 from scs_tpu.ops.dsmatmul import ds_matmul as j_ds_matmul
 from scs_tpu_torch.ops import dsmatmul, dsmatvec, roofline
 

@@ -14,6 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+# xdist workers share the cores: one torch thread each, not one per core
+torch.set_num_threads(1)
+
 import scs_tpu
 import scs_tpu_torch
 from scs_tpu import accel as j_accel
@@ -169,8 +172,8 @@ def test_proj_dual_cone_matches():
 
 def test_proj_cone_outside_slice_raises():
     with pytest.raises(NotImplementedError, match="item 11"):
-        project.proj_cone(torch.zeros(9, dtype=torch.float64),
-                          scs_tpu_torch.ConeSpec(l=3, s=(2,), ep=1))
+        project.proj_cone(torch.zeros(11, dtype=torch.float64),
+                          scs_tpu_torch.ConeSpec(l=3, d=(2,), ep=1))
 
 
 @pytest.mark.parametrize("mixed", [False, True])

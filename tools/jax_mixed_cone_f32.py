@@ -5,6 +5,8 @@ rebuilt here with the JAX package's generator from the same numpy seeds):
 
     python tools/jax_mixed_cone_f32.py lanes --seeds 1021 1099 1914 1000
     python tools/jax_mixed_cone_f32.py lanes --range 1000 1128 --modes 1
+    python tools/jax_mixed_cone_f32.py lanes --seeds 1011 1616 1702 1843 \
+        1852 --modes 1 3 [--raw]
     python tools/jax_mixed_cone_f32.py power [--n 200000]
 
 `lanes` solves the given lanes with scs_tpu.parallel's
@@ -13,13 +15,18 @@ make_chunked_batch_solver, direct backend, mixed precision, chunk_iters
 default for mixed ("float32 state", the exp and power cones then in
 float32); 1, "float64 state" (fast_f32=False; exp and power still
 float32, as `exp_f32` follows mixed); 2, "float64 state, exp/power
-float64" (exp_f32=False). The lanes are --seeds, or the seeds from the
+float64" (exp_f32=False); 3, "float64 state, exp float32, power float64"
+(the port's `Settings(exp_f32=True)` rule: mode 1 with the package's
+power projection wrapped to run in float64). With --raw the finishing
+float64 Moreau re-projection is replaced by the identity, so the
+returned point is the one the in-loop termination test read. The lanes
+are --seeds, or the seeds from the
 first to the last but one of --range, solved in batches of 128. For each
 mode: the lanes' iterations and statuses, their distance |pobj - opt| /
 (1 + |opt|) to the planted optimum, and which of SCS's termination tests
 (primal and dual residuals, gap; eps_abs + eps_rel times the scale, 1 %
 slack, as chip_smoke.termination_failures) each lane fails, recomputed
-in float64 from the original data; with --range, a count of the lanes
+in float64 from the original data, and each lane's gap over its bound; with --range, a count of the lanes
 failing each test instead of the per-lane lists.
 
 `power` projects --n random triples (entries U(-1, 1) times 10^U(-3, 3),
@@ -83,8 +90,7 @@ def termination_failures(A, b, c, x, y, s, eps_abs, eps_rel):
         "res_dual": (inf(aty + c), np.maximum(inf(c), inf(aty))),
         "gap": (np.abs(ctx + bty), np.maximum(np.abs(ctx), np.abs(bty))),
     }
-    return {k: ~(v <= 1.01 * (eps_abs + eps_rel * scl))
-            for k, (v, scl) in tests.items()}
+    return {k: v / (eps_abs + eps_rel * scl) for k, (v, scl) in tests.items()}
 
 
 def lanes(args) -> None:
@@ -99,7 +105,21 @@ def lanes(args) -> None:
     modes = (("float32 state (the default for mixed)", {}),
              ("float64 state, exp/power float32", dict(fast_f32=False)),
              ("float64 state, exp/power float64",
-              dict(fast_f32=False, exp_f32=False)))
+              dict(fast_f32=False, exp_f32=False)),
+             ("float64 state, exp float32, power float64",
+              dict(fast_f32=False)))
+    import types
+
+    import jax
+    import jax.numpy as jnp
+    from scs_tpu.cones import power as power_mod
+    from scs_tpu.cones import project as project_mod
+    from scs_tpu.parallel import batch as batch_mod
+    if args.raw:
+        batch_mod.make_moreau_repolish = lambda spec: (lambda data, st: st)
+    power64 = types.SimpleNamespace(proj_power_batch=lambda v, a: (
+        power_mod.proj_power_batch(v.astype(jnp.float64),
+                                   a.astype(jnp.float64)).astype(v.dtype)))
     for lo in range(0, len(seeds), 128):
         chunk = seeds[lo:lo + 128]
         probs = [gen_planted(spec, n=100, seed=s, density=0.1,
@@ -115,6 +135,11 @@ def lanes(args) -> None:
             stg = scs_tpu.Settings(linsys="direct", mixed_precision=True,
                                    chunk_iters=250,
                                    max_iters=args.max_iters, **kw)
+            project_mod.power = power64 if mode == 3 else power_mod
+            # trace anew: the package caches its compiled batch programs
+            # by (spec, settings), which modes 1 and 3 share
+            batch_mod._chunk_machinery.cache_clear()
+            jax.clear_caches()
             t0 = time.perf_counter()
             res = make_chunked_batch_solver(spec, stg)(*arrays)
             x, y, s = (np.asarray(getattr(res, k), np.float64)
@@ -122,8 +147,9 @@ def lanes(args) -> None:
             wall = time.perf_counter() - t0
             iters = np.asarray(res.iters)
             err = np.abs(np.asarray(res.pobj) - opts) / (1 + np.abs(opts))
-            fails = termination_failures(*arrays[:3], x, y, s, stg.eps_abs,
-                                         stg.eps_rel)
+            ratios = termination_failures(*arrays[:3], x, y, s,
+                                          stg.eps_abs, stg.eps_rel)
+            fails = {k: ~(v <= 1.01) for k, v in ratios.items()}
             if args.range:
                 print(f"{label}: seeds {chunk[0]}-{chunk[-1]}: "
                       f"{int(iters.sum())} lane-iterations (max "
@@ -139,7 +165,9 @@ def lanes(args) -> None:
             print(f"{label}: seeds {chunk} iterations {iters.tolist()} "
                   f"statuses {np.asarray(res.status).tolist()} planted "
                   f"error {[float(f'{e:.3e}') for e in err]} termination "
-                  f"tests failed {failed} wall {wall:.1f} s", flush=True)
+                  f"tests failed {failed} gap / its bound "
+                  f"{[float(f'{g:.3f}') for g in ratios['gap']]} wall "
+                  f"{wall:.1f} s", flush=True)
 
 
 def triples(n: int):
@@ -189,6 +217,7 @@ def main() -> int:
     ap.add_argument("--max-iters", type=int, default=25000)
     ap.add_argument("--n", type=int, default=200000)
     ap.add_argument("--platform", default="cpu")
+    ap.add_argument("--raw", action="store_true")
     args = ap.parse_args()
     (lanes if args.what == "lanes" else power)(args)
     return 0

@@ -20,6 +20,17 @@ one `make_chunked_batch_solver` call (direct backend, mixed, capped at
 `tools/jax_mixed_cone_f32.py lanes` solves the same lanes with the JAX
 package on the CPU.
 
+    python tools/torch_exp_f32_state_lanes.py --f64-state --device cpu \
+        --seeds 1011 1616 1702 1843 1852 [--raw]
+
+solves the lanes with float64 state and `exp_f32=True` (ROADMAP R4's
+open item) and prints, per lane, the iterations, the status, which of
+SCS's termination tests the returned point fails recomputed in float64
+(as `tools/jax_mixed_cone_f32.py`), and the gap over its bound; with
+--raw the finishing float64 Moreau re-projection
+(`solver.moreau_repolish`) is replaced by the identity, so the returned
+point is the one the in-loop termination test read.
+
     python tools/torch_exp_f32_state_lanes.py --power [--n 200000] \
         [--device cpu]
 
@@ -79,6 +90,51 @@ def power_roots(n: int, device: str) -> None:
           f"{err.max():.3e}")
 
 
+def termination_ratios(A, b, c, res, stg) -> dict:
+    """SCS's termination tests on the returned points, recomputed in
+    float64: {test: (B,) value over its bound eps_abs + eps_rel scale}."""
+    x, y, s = res.x, res.y, res.s
+    ax = torch.einsum("bmn,bn->bm", A, x)
+    aty = torch.einsum("bmn,bm->bn", A, y)
+    ctx, bty = (c * x).sum(1), (b * y).sum(1)
+
+    def inf(t):
+        return t.abs().amax(1)
+
+    tests = {
+        "res_pri": (inf(ax + s - b),
+                    torch.maximum(torch.maximum(inf(b), inf(s)), inf(ax))),
+        "res_dual": (inf(aty + c), torch.maximum(inf(c), inf(aty))),
+        "gap": ((ctx + bty).abs(), torch.maximum(ctx.abs(), bty.abs())),
+    }
+    return {k: (v / (stg.eps_abs + stg.eps_rel * scl)).cpu().numpy()
+            for k, (v, scl) in tests.items()}
+
+
+def f64_state_exp32(arrays, seeds, args, kw) -> None:
+    """The lanes with float64 state and exp_f32=True (module docstring)."""
+    from scs_tpu_torch.parallel import batch as batch_mod
+    stg = Settings(linsys="direct", mixed_precision=True, chunk_iters=250,
+                   max_iters=args.max_iters, fast_f32=False, exp_f32=True)
+    repolish = batch_mod.moreau_repolish
+    if args.raw:
+        batch_mod.moreau_repolish = lambda data, spec, st: st
+    try:
+        res = make_chunked_batch_solver(mixed_cones.headline_mixed_spec(),
+                                        stg, **kw)(*arrays)
+    finally:
+        batch_mod.moreau_repolish = repolish
+    ratios = termination_ratios(*arrays[:3], res, stg)
+    failed = [",".join(k for k, v in ratios.items() if not v[i] <= 1.01)
+              or "-" for i in range(len(seeds))]
+    print(f"float64 state, exp_f32=True"
+          f"{' (no finishing re-projection)' if args.raw else ''}: seeds "
+          f"{seeds} iterations {res.iters.tolist()} statuses "
+          f"{res.status.tolist()} termination tests failed {failed} gap / "
+          f"its bound {[float(f'{g:.3f}') for g in ratios['gap']]}",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="+",
@@ -87,6 +143,8 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--power", action="store_true")
     ap.add_argument("--n", type=int, default=200000)
+    ap.add_argument("--f64-state", action="store_true")
+    ap.add_argument("--raw", action="store_true")
     args = ap.parse_args()
     if args.power:
         power_roots(args.n, args.device)
@@ -102,8 +160,8 @@ def main() -> int:
     rule = project.proj_cone
 
     def exp_f32_state(x, spec, cone_data=None, box_t_warm=None, r_y=None,
-                      exp_f32=False):
-        out, t = rule(x, spec, cone_data, box_t_warm, r_y, exp_f32)
+                      exp_f32=False, psd_f32=False):
+        out, t = rule(x, spec, cone_data, box_t_warm, r_y, exp_f32, psd_f32)
         if x.dtype != torch.float32:
             return out, t
         # the exp rows projected in float32, as the JAX package does
@@ -116,18 +174,22 @@ def main() -> int:
         return out, t
 
     def all_f64(x, spec, cone_data=None, box_t_warm=None, r_y=None,
-                exp_f32=False):
+                exp_f32=False, psd_f32=False):
         if x.dtype != torch.float32:
-            return rule(x, spec, cone_data, box_t_warm, r_y, exp_f32)
+            return rule(x, spec, cone_data, box_t_warm, r_y, exp_f32,
+                        psd_f32)
         out, t = rule(x.to(torch.float64), spec,
                       *_cast(cone_data, box_t_warm, r_y, torch.float64))
         return out.to(x.dtype), t.to(x.dtype) if t is not None else t
 
+    kw = {} if args.device == "cuda" else dict(device="cpu", ds_split=True)
+    if args.f64_state:
+        f64_state_exp32(arrays, args.seeds, args, kw)
+        return 0
     runs = (("exp float32 under float32 state", exp_f32_state, {}),
             ("the port's rule", rule, {}),
             ("all cones float64 under float32 state", all_f64, {}),
             ("float64 state", rule, dict(fast_f32=False)))
-    kw = {} if args.device == "cuda" else dict(device="cpu", ds_split=True)
     try:
         for name, proj, skw in runs:
             project.proj_cone = proj
