@@ -63,23 +63,47 @@ Phases, in order; any failure raises and the script exits non-zero:
      float64, every mixed lane through the forced polish, every lane
      held to SCS's termination test and to the pure float64 run; and
      BatchWorkspace cold and warm on its 64 easiest lanes;
-  9. last, a profile of 25 iterations of the large SOCP, mixed and pure,
-     and mixed through the indirect backend, of 25 iterations of the
-     large mixed-cone program (direct mixed), and of 25 batched steps of
-     each headline batch's float32-state phase (launches, device busy
-     share, the kernels that take the most device time, the operators
-     that take the most host time), and the batched Anderson QR against
-     torch.linalg.qr.
+ 13. the spectral configurations (`models/spectral_cones.py`): the
+     logdet cones' cascade kernel (`ops/logdet.py`, K6: Newton, SCS's KKT
+     gate, the IPM) and the sum-of-k-largest loop kernel
+     (`ops/sumlargest.py`, K7) against their plain versions on the CPU at
+     the projections' shapes, with times; each spectral run (logdet, nuclear,
+     ell1, sum-largest) projected on the card with its eigh or SVD in
+     float64 and in float32 against the CPU's run of the same function
+     (`SPECTRAL_TOL`, `LOGDET_TOL`), with host ms and host syncs per
+     projection; the
+     large spectral program (n=2048, m=8192: logdet blocks of 60 and
+     4 x 16, a nuclear block 40 x 30, two ell1 cones of 400, a
+     sum-of-4-largest block of 40) direct mixed (K1, K6, K7 counted, the
+     forced float64 polish entered), direct pure float64 and indirect
+     mixed against its planted optimum and SCS's termination test; the
+     spectral headline batch at B=1024 mixed with float64 state and in
+     pure float64, and mixed with float32 state (K2 and K3 counted) on
+     its first SPECTRAL_F32_LANES lanes, every mixed lane through the
+     forced polish, every lane held to SCS's termination test and to the
+     pure float64 run;
+  9. last, a profile of 25 iterations of the large SOCP, mixed, and of
+     25 batched steps of the headline batch's float32-state phase
+     (launches, device busy share, the kernels that take the most device
+     time, the operators that take the most host time), and the batched
+     Anderson QR against torch.linalg.qr.
 Phase 2 also holds K2 and K3 against their plain versions at the batched
 shapes, and K4 and K5 against theirs.
+The float32-state batches of phases 11, 12 and 13 each run in a process
+of their own (this script with `--batch-child NAME`), started after phase
+2 and run beside phases 3-10 on the same card; each phase waits for its
+batch's result where it holds it to the other runs. Their times, and those
+of phases 3-10, are taken with the card and the host shared.
 Phases 3-6 run the direct backend (`Settings(linsys="direct")`).
 Each phase ends with a line `phase N done at T s` (seconds since the
 start). The whole run, the build included, has to end inside 1200 s on
 one H100: that is the time a caller of this script gives it.
-The second-to-last line is a JSON object with one entry per kernel (K1-K5),
+The second-to-last line is a JSON object with one entry per kernel (K1-K7),
 the last line {"ok": true, "device": {...}}.
 """
 
+import atexit
+import functools
 import hashlib
 import json
 import math
@@ -87,6 +111,8 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import types
 import warnings
@@ -97,14 +123,15 @@ import torch
 from scs_tpu_torch import Settings, Workspace, accel
 from scs_tpu_torch.cones import box as box_cone
 from scs_tpu_torch.cones import exp as exp_cone
-from scs_tpu_torch.cones import graphs, project, psd, segments, soc
+from scs_tpu_torch.cones import graphs, project, psd, segments, soc, spectral
 from scs_tpu_torch.cones import power as power_cone
 from scs_tpu_torch.demo_socp import make_spec
 from scs_tpu_torch.linsys import direct, indirect
 from scs_tpu_torch.models import gen_planted
-from scs_tpu_torch.models import mixed_cones, psd_cones
+from scs_tpu_torch.models import mixed_cones, psd_cones, spectral_cones
 from scs_tpu_torch.types import ConeData
-from scs_tpu_torch.ops import _build, dsmatmul, dsmatvec, roofline
+from scs_tpu_torch.ops import (_build, dsmatmul, dsmatvec, logdet, ozaki,
+                               roofline, sumlargest)
 from scs_tpu_torch.parallel import (BatchWorkspace,
                                     make_chunked_batch_solver,
                                     make_solver_parts)
@@ -953,6 +980,106 @@ def repeat_check(spec, batch_easy, first: dict) -> dict:
     return {"large": runs[0], "batch_lane_iterations": int(lanes[0].sum())}
 
 
+# ---- the float32-state batches of phases 11-13, each in a process ----
+#
+# With float32 state a few lanes of each family need tens of thousands of
+# iterations (PERF.md section 5: the reference's own stragglers), and the
+# lockstep loop then runs ~5-9 ms of host work a step for them, the card
+# 5-10 % busy. Run one after another, these three batches took ~550-740 s
+# of the script's 1200 s. Each runs instead in a process of its own (this
+# script with `--batch-child NAME`, the kernels already built), started
+# after phase 2 and run beside phases 3-10; the phase that holds its
+# result to the other runs waits for it. Each child sets its own launch
+# counts to 0 just before its solve and reads them just after.
+
+F32_CHILDREN = ("mixed-cone", "psd", "spectral")
+
+
+def _f32_batch_case(name: str):
+    """(spec, batch, label) of the float32-state batch `name`."""
+    if name == "mixed-cone":
+        spec = mixed_cones.headline_mixed_spec()
+        return (spec, headline_batch(spec, 1024, 1000, bounds=True),
+                "mixed-cone batch mixed")
+    if name == "psd":
+        spec = psd_cones.headline_psd_spec()
+        return spec, headline_batch(spec, 1024, 1000), "PSD batch mixed"
+    spec = spectral_cones.headline_spectral_spec()
+    return (spec, headline_batch(spec, SPECTRAL_F32_LANES, 1000),
+            f"spectral batch mixed B={SPECTRAL_F32_LANES}")
+
+
+def f32_batch_child(name: str) -> dict:
+    """The child's work: the batch `name` in the default mode (mixed,
+    float32 state) through solve_batch and its gates (objective within
+    5e-3 of the planted optimum, SCS's termination test), with the
+    spectral kernels' launches; numpy arrays as lists."""
+    torch.set_num_threads(1)
+    parent = os.getppid()
+
+    def orphaned():
+        # stop with the script, however it ended
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    spec, batch, label = _f32_batch_case(name)
+    logdet.launches = 0
+    sumlargest.launches = 0
+    res = solve_batch(spec, batch, Settings(linsys="direct", chunk_iters=250),
+                      f"{label} (a process of its own)", tol=5e-3)
+    res["k6"], res["k7"] = logdet.launches, sumlargest.launches
+    res["ended_at"] = time.time()
+    return {k: v.tolist() if isinstance(v, np.ndarray) else v
+            for k, v in res.items()}
+
+
+class BatchChild:
+    """`python3 chip_smoke.py --batch-child NAME`, started now; `result()`
+    waits for it, prints its output and returns its solve_batch record."""
+
+    running: list = []
+
+    def __init__(self, name: str):
+        self.name = name
+        self.log = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--batch-child",
+             name], stdout=self.log, stderr=subprocess.STDOUT, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.started_at = time.time()
+        BatchChild.running.append(self)
+
+    def result(self) -> dict:
+        t_wait = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=1000)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self.log.seek(0)
+        lines = self.log.read().strip().splitlines()
+        for line in lines[:-1]:
+            print(f"[{self.name} process] {line}")
+        check(rc == 0 and lines, f"the {self.name} float32-state batch's "
+              f"process failed ({rc}): {lines[-1] if lines else ''}")
+        res = json.loads(lines[-1])
+        print(f"[{self.name} process] its work ended "
+              f"{res['ended_at'] - self.started_at:.1f} s after its start; "
+              f"waited for here {time.perf_counter() - t_wait:.1f} s")
+        for k in ("status", "pobj", "iters"):
+            res[k] = np.asarray(res[k])
+        return res
+
+    @staticmethod
+    def stop_all() -> None:
+        for c in BatchChild.running:
+            if c.proc.poll() is None:
+                c.proc.kill()
+                c.proc.wait()
+
+
 def mixed_cone_large(p, spec) -> dict:
     """The large mixed-cone program through Workspace: direct mixed (K1
     counted around it), direct pure float64, indirect mixed, and direct
@@ -1168,8 +1295,9 @@ def psd_large(p, spec) -> dict:
     return out
 
 
-def psd_phase(card: str) -> dict:
-    """Phase 12 (see the module docstring)."""
+def psd_phase(card: str, f32: BatchChild) -> dict:
+    """Phase 12 (see the module docstring); `f32` the process that solves
+    the PSD batch with float32 state."""
     t0 = time.perf_counter()
     pspec_big = psd_cones.large_psd_spec()
     pspec = psd_cones.headline_psd_spec()
@@ -1193,12 +1321,12 @@ def psd_phase(card: str) -> dict:
     # lands 1.02e-3 away on an H100, PERF.md)
     runs = {}
     for label, kw, tol in (
-            ("mixed", {}, 5e-3),
             ("mixed float64 state", dict(fast_f32=False), 2e-3),
             ("pure f64", dict(mixed_precision=False), 2e-3)):
         runs[label] = solve_batch(
             pspec, pbatch, Settings(linsys="direct", chunk_iters=250, **kw),
             f"PSD batch {label}", tol=tol)
+    runs["mixed"] = f32.result()
     mixed_pb, mixed64_pb = runs["mixed"], runs["mixed float64 state"]
     fast = mixed_pb["by_phase"].get("fast", 0)
     check(mixed_pb["f32_state"] and mixed_pb["pair"] >= 2 * fast > 0,
@@ -1234,6 +1362,424 @@ def psd_phase(card: str) -> dict:
           f"device memory of the last batch "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {"rows": rows, "syncs": syncs, "large": big, "batch": runs}
+
+
+# phase 13: the spectral configurations. Card against the CPU's plain run
+# of the same port function on the same inputs, (1 + |v|): float64 eig
+# 1e-8 (the card's eigh and SVD, ~1e-15 from LAPACK's, and the same
+# loops), float32 eig 1e-4 (the card's and LAPACK's float32 eigh and SVD
+# each ~1e-6 from float64, as PSD_TOL). The logdet cones' Newton stops
+# where its directional derivative falls below 2e-12; its Hessian is at
+# least the identity, so a stopping point lies within ~2e-6 of the
+# projection, and two devices' round-off may stop it anywhere there:
+# LOGDET_TOL on the cones whose Newton converged inside its cap. Cones
+# where either side's Newton stopped at its 100-iteration cap or the IPM
+# ran are held to SCS's KKT gate instead (round-off moves those points
+# within the gate's tolerance: 4.7e-7 between the card and the CPU on
+# such cones on an H100, PERF.md)
+SPECTRAL_TOL = {False: 1e-8, True: 1e-4}
+LOGDET_TOL = 1e-6
+# the float32-state spectral batch runs on its first SPECTRAL_F32_LANES
+# lanes: on an H100 its first 256 took 1164.0 s (lanes 113 and 233 at
+# 27200 and 27675 iterations), its first 64 176.1 s (lane 50, seed 1050,
+# at 19475), most of it those lanes' forced float64 polish at ~8 ms a
+# lockstep step (PERF.md)
+SPECTRAL_F32_LANES = 64
+
+
+def _spectral_inputs(family: str, shape: tuple, width: int,
+                     seed: int) -> np.ndarray:
+    """Random segments of one spectral run: N(0, 4) entries, t (and v for
+    logdet) a third of the time inside the cone's scale."""
+    rng = np.random.RandomState(seed)
+    v = 2.0 * rng.randn(*shape, width)
+    if family in ("ell1", "nuclear", "sum-largest"):
+        v[..., 0] *= 1.0 + 3.0 * (rng.rand(*shape) < 0.3)
+    return v
+
+
+def _logdet_vectors(v: np.ndarray, ns: int):
+    """(t0, v0, w) of logdet segments v (L, tri + 2), as proj_logdet_batch
+    forms them (float64 numpy eigh on the host)."""
+    idx, uscale, _, _, _ = psd._tri_indices(ns)
+    M = v[:, 2:][:, idx] * uscale * math.sqrt(2.0)
+    return (v[:, 0] * math.sqrt(2.0), v[:, 1] * math.sqrt(2.0),
+            np.linalg.eigvalsh(M))
+
+
+def logdet_kernel_case(spec, lead: tuple, seed: int) -> dict:
+    """The logdet cascade kernel (`ops/logdet.py`) against its plain
+    version on the CPU, on the eigenvalues of random logdet segments at
+    the shapes the projections give it: cones whose Newton converged
+    inside its cap on both sides within LOGDET_TOL (1 + |v|),
+    the others (Newton at its cap, or the IPM) through SCS's KKT gate on
+    both sides; kernel time (CUDA events), the plain version's (a second
+    run on the CPU, the only device it runs on; host clock), and the
+    bound from this run's Newton and IPM iteration counts."""
+    out = []
+    for family, _, ct, width, _ in project.spectral_runs(spec):
+        if family != "logdet":
+            continue
+        ns = int(round((math.sqrt(8 * (width - 2) + 1) - 1) / 2))
+        shape = lead + (ct,)
+        count = int(np.prod(shape))
+        v = _spectral_inputs(family, shape, width, seed + ns).reshape(
+            count, width)
+        args = [torch.as_tensor(a) for a in _logdet_vectors(v, ns)]
+        ref = spectral.logdet_cone_plain(*(a.clone() for a in args))
+        t_plain = time.perf_counter()
+        spectral.logdet_cone_plain(*(a.clone() for a in args))
+        plain_ms = (time.perf_counter() - t_plain) * 1e3
+        dev = [a.cuda() for a in args]
+        got = [a.cpu() for a in logdet.logdet_cone(*dev)]
+        ipm = (ref[3] >= 100) | (got[3] >= 100)
+        scale = 1.0 + float(np.abs(np.concatenate(
+            [a.reshape(count, -1).numpy() for a in args], 1)).max())
+        err = max(float((g - r)[~ipm].abs().max()) if (~ipm).any() else 0.0
+                  for g, r in zip(got[:3], ref[:3])) / scale
+        gate = [bool(spectral._logdet_gate(*res[:3], *args)[ipm].all())
+                for res in (got, ref)]
+        ms = median_ms(lambda: logdet.logdet_cone(*dev))
+        its = got[3] % 1000
+        variants = got[3] // 1000
+        # operations: per Newton iteration ~(30 + 61 x 8) (n + 1) (the
+        # step and a line search of up to 61 trial points of n logs), per
+        # IPM iteration ~(6 x 40 + 120 x 12) (n + 3) (two KKT solves of
+        # three refinement passes, up to 120 merit evaluations); 100 IPM
+        # iterations a variant run
+        ops = float((its * 518 * (ns + 1)).sum()
+                    + (variants * 100 * 1680 * (ns + 3)).sum())
+        nbytes = count * (2 * (ns + 2) * 8 + 4)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP64_FLOPS) * 1e3
+        case = {"ns": ns, "cones": count, "gated_cones": int(ipm.sum()),
+                "ipm_cones": int(((ref[3] >= 1000) | (got[3] >= 1000)).sum()),
+                "newton_its_max": int(its.max()), "max_abs_err": err,
+                "gate_ok": gate, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": ("operations" if ops / FP64_FLOPS
+                             > nbytes / HBM_BYTES_PER_S else "bytes"),
+                "library_ms": None}
+        print(f"logdet_cone ns={ns} cones={count}: max_abs_err "
+              f"{err:.3e} (1 + |v|) on the {count - case['gated_cones']} "
+              f"cones whose Newton converged, {case['gated_cones']} held "
+              f"to the KKT gate ({case['ipm_cones']} through the IPM; gate "
+              f"passed: card {gate[0]}, plain {gate[1]}), Newton "
+              f"iterations at most {case['newton_its_max']}, kernel "
+              f"{ms:.4f} ms, plain version on the CPU {plain_ms:.1f} ms, "
+              f"bound {bound_ms:.4f} ms ({case['bound_by']})")
+        check(err <= LOGDET_TOL and all(gate),
+              f"logdet_cone ns={ns}: {err:.2e} from the plain version, or "
+              f"an IPM cone fails the gate ({gate})")
+        out.append(case)
+    return out
+
+
+def sum_largest_kernel_case(spec, lead: tuple, seed: int) -> list:
+    """The path-following kernel (`ops/sumlargest.py`) against its plain
+    version on the CPU, on the sorted eigenvalues of random sum-largest
+    segments at the shapes the projections give it, within
+    SPECTRAL_TOL[False] (1 + |v|); kernel time (CUDA events), the plain
+    version's (a second run on the CPU; host clock), and the bound from
+    this run's pass counts."""
+    out = []
+    for family, _, ct, width, fn in project.spectral_runs(spec):
+        if family != "sum-largest":
+            continue
+        ns, k = fn.keywords["ns"], fn.keywords["k"]
+        shape = lead + (ct,)
+        count = int(np.prod(shape))
+        v = _spectral_inputs(family, shape, width, seed + ns).reshape(
+            count, width)
+        idx, uscale, _, _, _ = psd._tri_indices(ns)
+        w = np.linalg.eigvalsh(v[:, 1:][:, idx] * uscale * math.sqrt(2.0))
+        args = (torch.as_tensor(v[:, 0] * math.sqrt(2.0)),
+                torch.as_tensor(np.ascontiguousarray(w[:, ::-1])))
+        t_ref, x_ref, passes = spectral._sum_largest_sorted_plain(
+            *args, k, passes=True)
+        t_plain = time.perf_counter()
+        spectral._sum_largest_sorted_plain(*args, k)
+        plain_ms = (time.perf_counter() - t_plain) * 1e3
+        dev = [a.cuda() for a in args]
+        t_got, x_got = (a.cpu() for a in sumlargest.sum_largest_sorted(
+            *dev, k))
+        scale = 1.0 + float(max(a.abs().max() for a in args))
+        err = max(float((t_got - t_ref).abs().max()),
+                  float((x_got - x_ref).abs().max())) / scale
+        ms = median_ms(lambda: sumlargest.sum_largest_sorted(*dev, k))
+        # ~15 operations a pass, then n for the assembly
+        ops = float(passes.sum()) * 15 + count * ns
+        nbytes = count * 2 * (ns + 1) * 8
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP64_FLOPS) * 1e3
+        case = {"ns": ns, "k": k, "cones": count, "max_abs_err": err,
+                "passes_max": int(passes.max()), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": ("operations" if ops / FP64_FLOPS
+                             > nbytes / HBM_BYTES_PER_S else "bytes"),
+                "library_ms": None}
+        print(f"sum_largest_sorted n={ns} k={k} cones={count}: max_abs_err "
+              f"{err:.3e} (1 + |v|), passes at most {case['passes_max']}, "
+              f"kernel {ms:.4f} ms, plain version on the CPU "
+              f"{plain_ms:.1f} ms, bound {bound_ms:.6f} ms "
+              f"({case['bound_by']})")
+        check(err <= SPECTRAL_TOL[False], f"sum_largest_sorted n={ns}: "
+              f"{err:.2e} from the plain version")
+        out.append(case)
+    return out
+
+
+def spectral_projection_rows(spec, lead: tuple, label: str) -> list:
+    """Each spectral run of `spec`, its cones stacked as the projection
+    gets them (lead + (cones of the run,)), projected on the card with the
+    eigh and SVD in float64 and in float32 and held to the CPU's run of
+    the same function on the same inputs (SPECTRAL_TOL); host wall ms and
+    host syncs per projection, and for logdet the Newton iterations and
+    the cones through the IPM."""
+    rows = []
+    for i, (family, _, ct, width, _) in enumerate(
+            project.spectral_runs(spec)):
+        shape = lead + (ct,)
+        count = int(np.prod(shape))
+        v = _spectral_inputs(family, shape, width, seed=130 + i)
+        x = torch.as_tensor(v, device="cuda")
+        row = {"family": family, "width": width, "cones": list(shape)}
+        for f32 in (False, True):
+            fn = project.spectral_runs(spec, f32)[i][4]
+            key = "f32" if f32 else "f64"
+            keep = np.ones(count, bool)
+            if family == "logdet":
+                with_info = functools.partial(
+                    spectral.proj_logdet_batch_info, **fn.keywords)
+                (ref, ref_info), (out, info) = (with_info(torch.as_tensor(v)),
+                                                with_info(x))
+                info = info.reshape(-1).cpu()
+                keep = ((info < 100) & (ref_info.reshape(-1) < 100)).numpy()
+                row[f"{key}_gated_cones"] = int(count - keep.sum())
+                row[f"{key}_ipm_cones"] = int((info >= 1000).sum())
+                row[f"{key}_newton_its_max"] = int((info % 1000).max())
+            else:
+                ref, out = fn(torch.as_tensor(v)), fn(x)
+            ref = ref.reshape(count, -1).numpy()
+            out = out.reshape(count, -1).cpu().numpy()
+            err = float(np.abs(out - ref)[keep].max() / (1 + np.abs(v).max())
+                        if keep.any() else 0.0)
+            row[f"{key}_err"] = err
+            row[f"{key}_ms"] = _wall_ms(lambda: fn(x), 3)
+            row[f"{key}_syncs"] = _host_syncs(lambda: fn(x))
+            tol = SPECTRAL_TOL[f32]
+            if family == "logdet":
+                tol = max(tol, LOGDET_TOL)
+            check(math.isfinite(err) and err <= tol
+                  and np.isfinite(out).all(),
+                  f"spectral projection {label} {family} {key}: card against "
+                  f"the CPU {err:.1e} > {tol:.0e} (1 + |v|)")
+        extra = (f"; cones at Newton's cap or through the IPM (not held "
+                 f"to the tolerance) float64 {row['f64_gated_cones']}, "
+                 f"float32 eig {row['f32_gated_cones']} of {count}; through "
+                 f"the IPM on the card float64 {row['f64_ipm_cones']} "
+                 f"({100 * row['f64_ipm_cones'] / count:.1f} %), float32 "
+                 f"eig {row['f32_ipm_cones']} "
+                 f"({100 * row['f32_ipm_cones'] / count:.1f} %); Newton "
+                 f"iterations at most {row['f64_newton_its_max']} "
+                 f"(float32 eig {row['f32_newton_its_max']})"
+                 if family == "logdet" else "")
+        print(f"spectral projection {label} {family} width {width} cones "
+              f"{row['cones']}: float64 {row['f64_ms']:.3f} ms "
+              f"({row['f64_syncs']} host syncs), float32 eig "
+              f"{row['f32_ms']:.3f} ms ({row['f32_syncs']} host syncs) per "
+              f"projection (host wall); card against the CPU "
+              f"{row['f64_err']:.1e} and {row['f32_err']:.1e} "
+              f"(1 + |v|){extra}")
+        rows.append(row)
+    return rows
+
+
+def spectral_large(p, spec) -> dict:
+    """The large spectral program through Workspace: direct mixed (K1 and
+    the logdet kernel counted, the forced float64 polish entered), direct
+    pure float64 and indirect mixed, each held against the planted
+    optimum, SCS's termination test recomputed in float64 and the pure
+    float64 objective."""
+    out = {}
+    one = tuple(t.cuda()[None] for t in (p.problem.A, p.problem.b,
+                                         p.problem.c))
+    for label, stg in (("direct mixed", Settings(linsys="direct")),
+                       ("direct pure f64", Settings(linsys="direct",
+                                                    mixed_precision=False)),
+                       ("indirect mixed", Settings())):
+        torch.cuda.synchronize()
+        dsmatvec.launches = 0
+        logdet.launches = 0
+        sumlargest.launches = 0
+        ws = Workspace(p.problem, spec, p.cone_data, stg)
+        polish = []
+        enter = ws._enter_polish_phase
+
+        def spy(st, enter=enter, polish=polish):
+            res = enter(st)
+            polish.append(res[1] is not None)
+            return res
+
+        ws._enter_polish_phase = spy
+        sol, info = ws.solve()
+        torch.cuda.synchronize()
+        launches, k6, k7 = (dsmatvec.launches, logdet.launches,
+                            sumlargest.launches)
+        err = abs(info.pobj - p.opt) / (1 + abs(p.opt))
+        fails = {k: int(v.sum()) for k, v in termination_failures(
+            one, _lane_result(sol), stg).items() if v.any()}
+        it = max(info.iter, 1)
+        print(f"large spectral {label}: {info.status}, {info.iter} "
+              f"iterations"
+              f"{f', {ws.tot_cg_its} CG iterations' if stg.linsys == 'indirect' else ''}"
+              f", setup {info.setup_time:.1f} ms, solve "
+              f"{info.solve_time:.1f} ms, {info.solve_time / it:.3f} "
+              f"ms/iteration, pobj {info.pobj!r} (planted {p.opt!r}, rel "
+              f"err {err:.2e}), K1 launches {launches} "
+              f"({launches / it:.2f} per iteration), logdet_cone launches "
+              f"{k6}, sum_largest_sorted launches {k7}, "
+              f"polish phase entered {polish}, "
+              f"SCS's tests failed {fails or 'none'}")
+        check(info.status == "solved", f"large spectral {label}: "
+              f"{info.status}")
+        check(err <= 1e-3, f"large spectral {label}: objective error "
+              f"{err:.2e}")
+        check(not fails and bool(np.all(np.isfinite(sol.x))),
+              f"large spectral {label}: SCS's termination test fails "
+              f"{fails}, or x not finite")
+        check(min(k6, k7) >= info.iter, f"large spectral {label}: {k6} "
+              f"logdet_cone and {k7} sum_largest_sorted launches in "
+              f"{info.iter} iterations")
+        if ws._mixed:
+            check(polish == [True], f"large spectral {label}: the forced "
+                  f"float64 polish was not entered ({polish})")
+            check(launches >= 2 * info.iter, f"large spectral {label}: K1 "
+                  f"launched {launches} times in {info.iter} iterations")
+        else:
+            check(launches == 0, f"large spectral {label}: pure f64 "
+                  f"launched K1")
+        out[label] = {"iter": info.iter, "solve_ms": info.solve_time,
+                      "launches": launches, "k6": k6, "k7": k7,
+                      "pobj": info.pobj, "mixed": ws._mixed}
+    pure = out["direct pure f64"]["pobj"]
+    for label in ("direct mixed", "indirect mixed"):
+        agree = abs(out[label]["pobj"] - pure) / (1 + abs(pure))
+        check(out[label]["mixed"] and agree <= 1e-3,
+              f"large spectral {label}: not mixed, or {agree:.2e} from pure "
+              f"f64")
+    return out
+
+
+def ozaki_product() -> float:
+    """`ops/ozaki.py` on the card, which no solver path calls
+    (`supported()` is False on the H100): one product whose contraction of
+    3000 takes three chunks of 1024, its bf16 slice products accumulated
+    in float32 on the tensor cores, against numpy's float64 product, within
+    1e-14 of A's row scale x B's column scale x k."""
+    rng = np.random.RandomState(64)
+    A, B = rng.randn(64, 3000), rng.randn(3000, 48)
+    t0 = time.perf_counter()
+    C = ozaki.ozaki_matmul(torch.as_tensor(A, device="cuda"),
+                           torch.as_tensor(B, device="cuda")).cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    scale = (np.abs(A).max(1, keepdims=True) * np.abs(B).max(0, keepdims=True)
+             * A.shape[1])
+    err = float(np.max(np.abs(C - A @ B) / scale))
+    print(f"ozaki_matmul (64, 3000) x (3000, 48) on the card: {err:.2e} of "
+          f"the operand scales x k from numpy's float64 product (bound "
+          f"1e-14), {ms:.1f} ms (first call, host clock)")
+    check(bool(np.all(np.isfinite(C))) and err < 1e-14,
+          f"ozaki_matmul on the card: {err:.2e} from numpy's float64 product")
+    return err
+
+
+def spectral_phase(card: str, f32: BatchChild) -> dict:
+    """Phase 13 (see the module docstring); `f32` the process that solves
+    the first SPECTRAL_F32_LANES lanes with float32 state."""
+    t0 = time.perf_counter()
+    sspec_big = spectral_cones.large_spectral_spec()
+    sspec = spectral_cones.headline_spectral_spec()
+    kcases = (logdet_kernel_case(sspec, (1024,), 300)
+              + logdet_kernel_case(sspec_big, (), 310))
+    scases = (sum_largest_kernel_case(sspec, (1024,), 320)
+              + sum_largest_kernel_case(sspec_big, (), 330))
+    ozaki_err = ozaki_product()
+    rows = (spectral_projection_rows(sspec_big, (), "large")
+            + spectral_projection_rows(sspec, (1024,), "batch B=1024"))
+    sbatch = headline_batch(sspec, 1024, 1000)
+    B, m = sbatch[1].shape
+    gen = torch.Generator(device="cuda").manual_seed(63)
+    x = torch.randn(B, m, generator=gen, dtype=torch.float64, device="cuda")
+    r = 0.1 + torch.rand(B, m, generator=gen, dtype=torch.float64,
+                         device="cuda")
+    syncs = {f32: _host_syncs(lambda: project.proj_dual_cone_batched(
+        x, sspec, None, None, r, psd_f32=f32)) for f32 in (False, True)}
+    print(f"proj_dual_cone_batched ({B}, {m}) spectral layout: host syncs "
+          f"per projection float64 {syncs[False]}, float32 eig "
+          f"{syncs[True]}")
+    print(f"phase 13 projections done at {time.perf_counter() - t0:.1f} s")
+    big_p = gen_planted(sspec_big, n=2048, seed=7, density=0.3)
+    big = spectral_large(big_p, sspec_big)
+    print(f"phase 13 large program done at {time.perf_counter() - t0:.1f} s")
+    # objectives: every lane passes SCS's termination test at eps 1e-4
+    # (verify_termination); against the planted optimum and pure f64 the
+    # PSD batch's bounds (2e-3 and 1e-3 with float64 state, 5e-3 with
+    # float32 state)
+    runs = {}
+    for label, kw in (("mixed float64 state", dict(fast_f32=False)),
+                      ("pure f64", dict(mixed_precision=False))):
+        logdet.launches = 0
+        sumlargest.launches = 0
+        runs[label] = solve_batch(
+            sspec, sbatch, Settings(linsys="direct", chunk_iters=250, **kw),
+            f"spectral batch {label}", tol=2e-3)
+        runs[label]["k6"] = logdet.launches
+        runs[label]["k7"] = sumlargest.launches
+    runs[f"mixed B={SPECTRAL_F32_LANES}"] = f32.result()
+    for label, run in runs.items():
+        print(f"spectral batch {label}: logdet_cone launches {run['k6']}, "
+              f"sum_largest_sorted launches {run['k7']}")
+        check(min(run["k6"], run["k7"]) >= run["steps"], f"spectral batch "
+              f"{label}: the spectral kernels launched fewer times than the "
+              f"batch stepped")
+    mixed64 = runs["mixed float64 state"]
+    mixed32 = runs[f"mixed B={SPECTRAL_F32_LANES}"]
+    pure = runs["pure f64"]
+    fast = mixed32["by_phase"].get("fast", 0)
+    check(mixed32["f32_state"] and mixed32["pair"] >= 2 * fast > 0,
+          f"spectral batch: float32 state {mixed32['f32_state']}, "
+          f"{mixed32['pair']} K3 launches for {fast} fast steps")
+    check(mixed32["launches"] >= 2 * mixed32["steps"],
+          f"spectral batch: {mixed32['launches']} K2 launches < 2 x "
+          f"{mixed32['steps']} steps")
+    check(mixed64["launches"] >= 4 * mixed64["steps"]
+          and mixed64["pair"] == 0,
+          f"spectral batch, float64 state: {mixed64['launches']} K2 "
+          f"launches < 4 x {mixed64['steps']} steps, or K3 launched")
+    for label, run in (("mixed float64 state", mixed64),
+                       (f"mixed B={SPECTRAL_F32_LANES}", mixed32)):
+        lanes = len(run["status"])
+        check(run["polished"] == lanes
+              and run["by_phase"].get("polish", 0) > 0,
+              f"spectral batch {label}: {run['polished']} of {lanes} lanes "
+              f"took the forced float64 polish")
+    check(pure["polished"] == 0, "spectral batch pure f64 polished")
+    for label, run, tol in (("mixed float64 state", mixed64, 1e-3),
+                            (f"mixed B={SPECTRAL_F32_LANES}", mixed32, 5e-3)):
+        lanes = len(run["status"])
+        check(bool(np.array_equal(pure["status"][:lanes], run["status"])),
+              f"spectral batch: pure and {label} statuses differ")
+        agree = np.abs(run["pobj"] - pure["pobj"][:lanes]) / (
+            1 + np.abs(pure["pobj"][:lanes]))
+        print(f"spectral batch: {label} against pure f64, pobj rel diff max "
+              f"{agree.max():.3e}")
+        check(bool(np.all(agree <= tol)), f"spectral batch: {label} vs pure "
+              f"pobj differ by {agree.max():.2e}, above {tol:.0e}")
+    print(f"{card}, phase 13 (spectral) {time.perf_counter() - t0:.1f} s, "
+          f"peak device memory of the last batch "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"kernel": kcases, "sl_kernel": scases, "rows": rows,
+            "ozaki_err": ozaki_err,
+            "syncs": syncs, "large": big, "batch": runs}
 
 
 # phase 2's rows; tools/torch_kernel_rows.py times the same rows for two
@@ -1314,6 +1860,11 @@ def main() -> int:
         # the repeat check's fresh process (phase 10)
         print(json.dumps(_repeat_solve()))
         return 0
+    if sys.argv[1:2] == ["--batch-child"]:
+        # a float32-state batch of phases 11-13 (BatchChild)
+        print(json.dumps(f32_batch_child(sys.argv[2]),
+                         default=lambda v: v.item()))
+        return 0
     t_start = time.perf_counter()
 
     def done(phase: int) -> None:
@@ -1376,6 +1927,13 @@ def main() -> int:
           f" us")
 
     done(2)
+
+    # the float32-state batches of phases 11-13, each in a process of its
+    # own beside phases 3-10 (BatchChild); stopped at exit, however it comes
+    atexit.register(BatchChild.stop_all)
+    children = {name: BatchChild(name) for name in F32_CHILDREN}
+    print(f"started the float32-state batches of phases 11-13 "
+          f"({', '.join(F32_CHILDREN)}), each in a process of its own")
 
     # 3. the main path: the large SOCP, counts set to 0 just before
     spec = make_spec(n_big, 0.1, np.random.RandomState(7))
@@ -1570,9 +2128,7 @@ def main() -> int:
     seg_cost = segment_sum_cost(spec, head)
     mbig_p = mixed_cones.gen_mixed(mspec_big, 2048, 7, 0.3)
     mbig = mixed_cone_large(mbig_p, mspec_big)
-    mixed_mb = solve_batch(mspec, mbatch,
-                           Settings(linsys="direct", chunk_iters=250),
-                           "mixed-cone batch mixed", tol=5e-3)
+    mixed_mb = children["mixed-cone"].result()
     fast = mixed_mb["by_phase"].get("fast", 0)
     check(mixed_mb["f32_state"] and mixed_mb["pair"] >= 2 * fast > 0,
           f"mixed-cone batch: float32 state {mixed_mb['f32_state']}, "
@@ -1629,9 +2185,20 @@ def main() -> int:
     # 1024 (float32 state with K2 and K3 counted, float64 state, pure
     # float64), every mixed lane through the forced float64 polish, and
     # BatchWorkspace on 64 lanes
-    psd_phase(card)
+    psd_phase(card, children["psd"])
 
     done(12)
+
+    # 13. the spectral configurations (`models/spectral_cones.py`): the
+    # logdet kernel against its plain version, each spectral run's card
+    # projection against the CPU's; the large spectral program (direct
+    # mixed with K1 and the logdet kernel counted, direct pure float64,
+    # indirect mixed) and the spectral batch of 1024 (float64 state, pure
+    # float64, and float32 state on its first SPECTRAL_F32_LANES lanes),
+    # every mixed lane through the forced float64 polish
+    spec13 = spectral_phase(card, children["spectral"])
+
+    done(13)
 
     # 9. where the time of an iteration goes, mixed and pure, on the large
     # SOCP (100 iterations each unprofiled, in turns, then 25 under the
@@ -1647,13 +2214,7 @@ def main() -> int:
           f"ms/iteration; pure f64 {turns[False][0]:.3f}, "
           f"{turns[False][1]:.3f} ms/iteration")
     profile_iterations(big_p, spec, True, 25, "large SOCP mixed")
-    profile_iterations(big_p, spec, False, 25, "large SOCP pure f64")
-    profile_iterations(big_p, spec, True, 25, "large SOCP indirect mixed",
-                       linsys="indirect")
     profile_batched(head, batch, 25)
-    profile_iterations(mbig_p, mspec_big, True, 25,
-                       "large mixed cones mixed")
-    profile_batched(mspec, mbatch, 25, " mixed cones")
     anderson_qr_times(1024, 501 + 10, 10)
 
     done(9)
@@ -1708,6 +2269,28 @@ def main() -> int:
         "ms": rcases[0]["ms"], "plain_ms": rcases[0]["plain_ms"],
         "bound_ms": rcases[0]["bound_ms"],
         "bound_by": rcases[0]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "logdet_cone", "route": "cuda",
+        "source": "scs_tpu_torch/csrc/logdet.cu",
+        "replaces": "scs_tpu/cones/spectral.py:193",
+        "launches": spec13["large"]["direct mixed"]["k6"],
+        "max_abs_err": max(c["max_abs_err"] for c in spec13["kernel"]),
+        "ms": spec13["kernel"][0]["ms"],
+        "plain_ms": spec13["kernel"][0]["plain_ms"],
+        "bound_ms": spec13["kernel"][0]["bound_ms"],
+        "bound_by": spec13["kernel"][0]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "sum_largest_sorted", "route": "cuda",
+        "source": "scs_tpu_torch/csrc/sumlargest.cu",
+        "replaces": "scs_tpu/cones/spectral.py:99",
+        "launches": spec13["large"]["direct mixed"]["k7"],
+        "max_abs_err": max(c["max_abs_err"] for c in spec13["sl_kernel"]),
+        "ms": spec13["sl_kernel"][0]["ms"],
+        "plain_ms": spec13["sl_kernel"][0]["plain_ms"],
+        "bound_ms": spec13["sl_kernel"][0]["bound_ms"],
+        "bound_by": spec13["sl_kernel"][0]["bound_by"],
         "library_ms": None,
     }]
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -10,8 +10,10 @@ by Douglas-Rachford splitting on the homogeneous self-dual embedding, with
 Anderson acceleration, Ruiz equilibration, adaptive dual scaling and
 warm-startable b/c updates (SCS 3.2.11 semantics). It ports the JAX
 package's solves of one problem (`Workspace`, `solve`) and of batches
-(`scs_tpu_torch.parallel`) for the zero, nonnegative, box, second-order,
-exponential and power cones, through the indirect (Jacobi-preconditioned
+(`scs_tpu_torch.parallel`) for every cone of the JAX package: zero,
+nonnegative, box, second-order, PSD, complex PSD, exponential, power, and
+the spectral cones (log-determinant, nuclear-norm, ell1-norm and
+sum-of-k-largest-eigenvalues), through the indirect (Jacobi-preconditioned
 CG, the default) or the direct (Cholesky) linear-system backend, in pure
 and mixed precision.
 The double-single matvec that the mixed path runs is a hand-written CUDA

@@ -21,7 +21,6 @@ import torch
 
 from . import accel, config
 from .cones.box import scale_box_bounds
-from .cones.project import require_supported
 from .equilibrate import (equilibrate, identity_scaling, normalize_b_c,
                           normalize_xys, unnormalize_xys)
 from .linsys import Mats, get_backend, prepare_operands, resolve_mixed
@@ -83,7 +82,6 @@ class Workspace:
         _not_ported(stg)
         dtype = stg.dtype
         validate(problem, spec, cone_data, stg)
-        require_supported(spec)
         self.spec = spec
         self.stg = stg
         self.device = dev

@@ -1,23 +1,28 @@
 """Cone projection dispatcher and Moreau dual-cone wrapper.
 
 Counterpart of `scs_tpu/cones/project.py` (SCS: src/cones.c:1340-1494 and
-the Moreau wrapper at :1552-1596) for the cones ported so far: zero,
+the Moreau wrapper at :1552-1596) for every cone of `ConeSpec`: zero,
 nonnegative, box, second-order, PSD, complex PSD, exponential (primal and
-dual) and power. A spec with a spectral cone (logdet, nuclear, ell1,
-sum-largest) raises `NotImplementedError` (ROADMAP queue 1, item 11).
+dual), power, and the spectral cones (log-determinant, nuclear-norm,
+ell1-norm and sum-of-k-largest-eigenvalues, `cones/spectral.py`).
 
 One function serves one problem (x (m,)) and a batch (x (B, m), each row
 one problem with its own metric r_y, box bounds and box warm start): every
 family projects along the last axis, and each run of equal PSD block sizes
-is one batched eigh over every block and lane (`cones/psd.py`). The box,
-exp and power projections are fixed-count masked loops; on the card each
-runs as a CUDA graph (`graphs.run`), on the CPU eagerly; eigh runs
-outside any graph.
+is one batched eigh over every block and lane (`cones/psd.py`), as each
+run of equal spectral cones is one batched call over lanes x cones. The
+box, exp and power projections are fixed-count masked loops; on the card
+each runs as a CUDA graph (`graphs.run`), on the CPU eagerly; eigh and SVD
+run outside any graph, and the spectral cones' data-dependent loops are
+the kernels of `ops/logdet.py` and `ops/sumlargest.py` on the card and
+their plain versions, eager masked loops, on the CPU.
 
 Precision: the box and SOC cones project in the dtype of x; the PSD and
-complex-PSD cones too, or in float32 where `psd_f32` asks for it (the
-mixed fast phase, as in the JAX package; `ConeSpec.f32_polish_cones`
-then forces the float64 polish); the exp cones in float64, or in float32
+complex-PSD cones too, their eigh in float32 where `psd_f32` asks for it
+(the mixed fast phase, as in the JAX package; `ConeSpec.f32_polish_cones`
+then forces the float64 polish); the spectral cones in float64, their
+eigh or SVD in float32 where `psd_f32` asks for it; the exp cones in
+float64, or in float32
 where `exp_f32` asks for it on a float64 x (`Settings.exp_f32=True`);
 the power cones always in float64. Deviations from the JAX package's
 float32 fast phase, which projects exp and power in float32 with mixed
@@ -28,8 +33,13 @@ converge in 200-525 with the exp rows in float64; with float64 state
 and float32 exp, the finishing float64 re-projection lifts some lanes'
 gap above SCS's bound in both packages, so the port's polish projects
 exp in float64 even where the JAX package's exactness-only polish keeps
-it in float32. The PSD cones follow the reference (no R5: their float32
-eigh fails on no lane of the PSD configurations).
+it in float32. The PSD cones follow the reference (their float32 eigh
+fails on no lane of the PSD configurations). With float32 state the
+spectral cones project in float64 (ROADMAP R5): the JAX package's
+float32-state phase fails at trace time on every spectral cone (its
+while_loop carries mix float32 and float64), and the logdet cascade in
+float32 leaves cones at Newton's 100-iteration cap, ~5e-3 from the
+float64 projection, some outside SCS's KKT gate.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ import numpy as np
 import torch
 
 from ..types import ConeData, ConeSpec
-from . import box, exp, graphs, power, psd, soc
+from . import box, exp, graphs, power, psd, soc, spectral
 
 
 def _contiguous_runs(sizes):
@@ -73,21 +83,9 @@ def cone_boundaries(spec: ConeSpec) -> list[int]:
     return b
 
 
-def require_supported(spec: ConeSpec) -> None:
-    """Raise unless every cone of `spec` is one this package projects."""
-    other = [name for name in ("d", "nuc_m", "ell1", "sl_n")
-             if getattr(spec, name)]
-    if other:
-        raise NotImplementedError(
-            f"cones {other} are not ported yet (ROADMAP queue 1, item 11); "
-            "scs_tpu_torch projects zero, nonnegative, box, second-order, "
-            "PSD, complex PSD, exponential and power cones")
-
-
 @dataclasses.dataclass(frozen=True)
 class ConeLayout:
-    """Offsets of the ported cone families within the stacked m-vector
-    (the spectral families, not ported, take no rows)."""
+    """Offsets of each cone family within the stacked m-vector."""
 
     spec: ConeSpec
     z_off: int
@@ -98,19 +96,58 @@ class ConeLayout:
     cs_off: int
     exp_off: int
     pow_off: int
+    d_off: int
+    nuc_off: int
+    ell1_off: int
+    sl_off: int
     total: int
 
     @staticmethod
     def make(spec: ConeSpec) -> "ConeLayout":
-        require_supported(spec)
         box_off = spec.z + spec.l
         q_off = box_off + spec.bsize
         s_off = q_off + sum(spec.q)
         cs_off = s_off + sum(si * (si + 1) // 2 for si in spec.s)
         exp_off = cs_off + sum(ci * ci for ci in spec.cs)
         pow_off = exp_off + 3 * (spec.ep + spec.ed)
+        d_off = pow_off + 3 * spec.psize
+        nuc_off = d_off + sum(di * (di + 1) // 2 + 2 for di in spec.d)
+        ell1_off = nuc_off + sum(mi * ni + 1
+                                 for mi, ni in zip(spec.nuc_m, spec.nuc_n))
+        sl_off = ell1_off + sum(ei + 1 for ei in spec.ell1)
+        total = sl_off + sum(si * (si + 1) // 2 + 1 for si in spec.sl_n)
         return ConeLayout(spec, 0, spec.z, box_off, q_off, s_off, cs_off,
-                          exp_off, pow_off, pow_off + 3 * spec.psize)
+                          exp_off, pow_off, d_off, nuc_off, ell1_off, sl_off,
+                          total)
+
+
+@functools.lru_cache(maxsize=64)
+def spectral_runs(spec: ConeSpec, f32_eig: bool = False) -> tuple:
+    """(family, offset, count, width, fn) for each contiguous run of equal
+    spectral cones, in row order; fn projects a (..., count, width)
+    segment, the eigh or SVD in float32 with `f32_eig`."""
+    lay = ConeLayout.make(spec)
+    fams = (
+        ("logdet", lay.d_off, spec.d, lambda d: d * (d + 1) // 2 + 2,
+         lambda d: functools.partial(spectral.proj_logdet_batch, ns=d,
+                                     f32_eig=f32_eig)),
+        ("nuclear", lay.nuc_off, tuple(zip(spec.nuc_m, spec.nuc_n)),
+         lambda mn: mn[0] * mn[1] + 1,
+         lambda mn: functools.partial(spectral.proj_nuclear, m=mn[0],
+                                      n=mn[1], f32_eig=f32_eig)),
+        ("ell1", lay.ell1_off, spec.ell1, lambda e: e + 1,
+         lambda e: spectral.proj_ell1),
+        ("sum-largest", lay.sl_off, tuple(zip(spec.sl_n, spec.sl_k)),
+         lambda sk: sk[0] * (sk[0] + 1) // 2 + 1,
+         lambda sk: functools.partial(spectral.proj_sum_largest_evals,
+                                      ns=sk[0], k=sk[1], f32_eig=f32_eig)))
+    runs = []
+    for family, off, sizes, width_of, fn_of in fams:
+        for key, ct in _contiguous_runs(sizes):
+            width = width_of(key)
+            runs.append((family, off, ct, width, fn_of(key)))
+            off += width * ct
+    return tuple(runs)
 
 
 @functools.lru_cache(maxsize=64)
@@ -200,6 +237,18 @@ def proj_cone(x: torch.Tensor, spec: ConeSpec,
         a = _pow_exponents(tuple(spec.p), seg.dtype, x.device)
         out = graphs.run(power.proj_power_batch, (seg, a))
         parts.append(out.to(x.dtype).reshape(lead + (3 * spec.psize,)))
+    # spectral cones: each contiguous run of equal cones is one batched
+    # call over lanes x cones, in float64 (R5, module docstring); the
+    # logdet runs go last, so that their kernel runs on the card while the
+    # host goes on (the other families' eigh and SVD wait for the card)
+    runs = spectral_runs(spec, psd_f32)
+    first = len(parts)
+    parts += [None] * len(runs)
+    for i in sorted(range(len(runs)), key=lambda i: runs[i][0] == "logdet"):
+        _, off, ct, width, fn = runs[i]
+        seg = x[..., off:off + width * ct].reshape(lead + (ct, width))
+        parts[first + i] = (fn(seg.to(torch.float64)).to(x.dtype)
+                            .reshape(lead + (width * ct,)))
     return (torch.cat(parts, dim=-1) if parts else x), new_warm
 
 

@@ -1,14 +1,14 @@
 """Problem generators: planted-optimum random cone programs and
 certificate (infeasible / unbounded) constructions.
 
-Counterpart of `scs_tpu/models/generators.py` for the cones this package
-projects. Everything is drawn with numpy's RandomState in the JAX
-package's order, so a seed gives bit-identical A, b and c in both
-packages wherever the dual projection is the numpy one (zero,
-nonnegative and SOC layouts); a layout with box, PSD, complex-PSD, exp
-or power cones projects through this package's `proj_dual_cone` in float64 on the CPU,
-as the JAX package projects through its own, so the two agree to the
-projections' round-off. The planted pair mirrors SCS's test harness
+Counterpart of `scs_tpu/models/generators.py`. Everything is drawn with
+numpy's RandomState in the JAX package's order, so a seed gives
+bit-identical A, b and c in both packages wherever the dual projection is
+the numpy one (zero, nonnegative and SOC layouts); any other layout (box,
+PSD, complex-PSD, exp, power or spectral cones) projects through this
+package's `proj_dual_cone` in float64 on the CPU, as the JAX package
+projects through its own, so the two agree to the projections' round-off.
+The planted pair mirrors SCS's test harness
 (test/problem_utils.h:22-81): y in K*, s = y - z in K with y's = 0, a
 random x, b = Ax + s and c = -A'y (- Px for QPs).
 """
@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..cones.project import proj_dual_cone, require_supported
+from ..cones.project import proj_dual_cone
 from ..types import ConeData, ConeSpec, Problem
 
 
@@ -66,9 +66,8 @@ def _project_dual(z: np.ndarray, spec: ConeSpec,
                   cone_data: ConeData) -> np.ndarray:
     """Projection onto the dual cone: numpy for zero/nonnegative/SOC
     layouts, else `proj_dual_cone` in float64 on the CPU."""
-    require_supported(spec)
     if not (spec.bsize or spec.s or spec.cs or spec.ep or spec.ed
-            or spec.p):
+            or spec.p or spec.d or spec.nuc_m or spec.ell1 or spec.sl_n):
         return _project_dual_np(z, spec)
     bu = torch.as_tensor(np.asarray(cone_data.bu), dtype=torch.float64)
     bl = torch.as_tensor(np.asarray(cone_data.bl), dtype=torch.float64)

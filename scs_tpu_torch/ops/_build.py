@@ -30,7 +30,8 @@ BUILD_DIR = _PKG / "_build"
 
 # kernel name -> source file under csrc/
 SOURCES = {"dsmatvec": "dsmatvec.cu", "readpeak": "readpeak.cu",
-           "dsmatmul": "dsmatmul.cu"}
+           "dsmatmul": "dsmatmul.cu", "logdet": "logdet.cu",
+           "sumlargest": "sumlargest.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

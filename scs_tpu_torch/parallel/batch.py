@@ -52,7 +52,6 @@ import torch
 from .. import config
 from ..api import _not_ported, _resolve_device
 from ..cones.box import scale_box_bounds
-from ..cones.project import require_supported
 from ..equilibrate import (equilibrate_batched, identity_scaling_batched,
                            normalize_b_c_batched, normalize_xys_batched,
                            unnormalize_xys_batched)
@@ -90,7 +89,6 @@ def _check(spec: ConeSpec, stg: Settings) -> None:
     """Raise for what the batched solvers do not run (yet)."""
     get_backend(stg.linsys)
     _not_ported(stg)
-    require_supported(spec)
 
 
 def make_solver_parts(spec: ConeSpec, stg: Settings, *, device="cuda",

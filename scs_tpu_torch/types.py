@@ -46,11 +46,11 @@ class ConeSpec:
 
     Rows of A follow this order: zero, nonnegative, box, SOC blocks, PSD
     blocks, complex-PSD blocks, primal exp triples, dual exp triples, power
-    triples, then the spectral cones. All fields are kept so that any spec of
-    the JAX package converts; the solver projects the zero, nonnegative,
-    box, second-order, PSD, complex-PSD, exponential and power cones so far
-    (`cones.project`). The mixed fast phase projects the PSD cones in
-    float32 and polishes in float64 after, as the JAX package does; it
+    triples, then the spectral cones (logdet, nuclear, ell1, sum-largest).
+    Every field converts from the JAX package's spec and every cone
+    projects (`cones.project`). The mixed fast phase runs the eigh and SVD
+    of the PSD and spectral cones in float32 and polishes in float64
+    after, as the JAX package does; it
     leaves the JAX package's float32 fast phase for the exp and power
     cones, which project in float64 (exp in float32 only with
     `Settings.exp_f32=True`, and never in the polish; ROADMAP section 3,

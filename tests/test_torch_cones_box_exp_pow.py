@@ -255,8 +255,10 @@ def test_proj_dual_cone_matches_jax(exp_f32):
 
 def test_cpu_runs_eagerly_and_layout():
     """On the CPU `graphs.run` is the plain call (no capture); the layout
-    matches the JAX package's offsets; the spectral cones still raise
-    with item 11."""
+    matches the JAX package's offsets; each spectral family added to the
+    layout (the specs that raised until the spectral cones came in) lays
+    out with the JAX package's offsets and projects as it does, within
+    1e-10 relative."""
     spec = convert.spec_from_dict(dataclasses.asdict(MIXED))
     before = (graphs.captures, graphs.replays)
     x = t(np.random.RandomState(2).randn(spec.dims()))
@@ -269,10 +271,21 @@ def test_cpu_runs_eagerly_and_layout():
     for name in ("z_off", "l_off", "box_off", "q_off", "s_off", "cs_off",
                  "exp_off", "pow_off", "total"):
         assert getattr(tl, name) == getattr(jl, name), name
-    for bad in (dict(nuc_m=(2,), nuc_n=(2,)), dict(sl_n=(2,), sl_k=(1,)),
-                dict(d=(2,)), dict(ell1=(3,))):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            project.require_supported(dataclasses.replace(spec, **bad))
+    rng = np.random.RandomState(13)
+    for extra in (dict(nuc_m=(2,), nuc_n=(2,)), dict(sl_n=(2,), sl_k=(1,)),
+                  dict(d=(2,)), dict(ell1=(3,))):
+        jext = dataclasses.replace(MIXED, **extra)
+        ext = dataclasses.replace(spec, **extra)
+        jl, tl = j_project.ConeLayout.make(jext), project.ConeLayout.make(ext)
+        for f in dataclasses.fields(jl):
+            if f.name != "spec":
+                assert getattr(tl, f.name) == getattr(jl, f.name), f.name
+        xe = rng.randn(ext.dims())
+        jcd = scs_tpu.ConeData.make(jext, bu=np.ones(4), bl=-np.ones(4))
+        ref = jax.jit(lambda xi, jext=jext, jcd=jcd: j_project.proj_cone(
+            xi, jext, jcd, jnp.ones(()), None)[0])(jnp.asarray(xe))
+        got = project.proj_cone(t(xe), ext, tcd)[0]
+        _close(got.numpy(), np.asarray(ref), 1e-10)
 
 
 def test_convert_carries_box_bounds_and_exponents():

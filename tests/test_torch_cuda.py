@@ -616,3 +616,153 @@ def test_two_solves_repeat_on_the_card(cuda):
     its = [make_chunked_batch_solver(spec, Settings(linsys="direct"))(
         *args).iters.cpu() for _ in range(2)]
     assert torch.equal(its[0], its[1])
+
+
+def _spectral_segments(family, shape, width, seed):
+    rng = np.random.RandomState(seed)
+    v = 2.0 * rng.randn(*shape, width)
+    if family != "logdet":
+        v[..., 0] *= 1.0 + 3.0 * (rng.rand(*shape) < 0.3)
+    return v
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["f64", "f32_eig"])
+@pytest.mark.parametrize("family", ["logdet", "nuclear", "ell1",
+                                    "sum-largest"])
+def test_spectral_family_on_the_card_matches_the_plain_version(cuda, family,
+                                                               f32):
+    """Each spectral family at the spectral headline batch's shape (1024
+    lanes, `models/spectral_cones.headline_spectral_spec`), projected on
+    the card and by the plain version on the CPU: within 1e-8 (1 + |v|)
+    with float64 eig, 1e-4 with float32 eig (the two devices' float32
+    eigh and SVD); logdet cones within 1e-6, the distance from the
+    projection at which Newton's stopping test (directional derivative
+    below 2e-12, Hessian at least the identity) may stop on either
+    device; logdet cones whose Newton stops at its cap or that run the
+    IPM, on either side, are held to SCS's KKT gate instead (on the
+    vector cone, through the kernel and its plain version)."""
+    from scs_tpu_torch.cones import project, spectral
+    from scs_tpu_torch.models import spectral_cones
+    from scs_tpu_torch.ops import logdet
+    spec = spectral_cones.headline_spectral_spec()
+    (_, _, ct, width, fn), = [r for r in project.spectral_runs(spec, f32)
+                              if r[0] == family]
+    v = _spectral_segments(family, (1024, ct), width, 40 + len(family))
+    keep = torch.ones(1024, dtype=torch.bool)
+    if family == "logdet":
+        fn = functools.partial(spectral.proj_logdet_batch_info,
+                               **fn.keywords)
+        (ref, ref_info), (got, got_info) = (
+            fn(torch.as_tensor(v, device=dev))
+            for dev in (torch.device("cpu"), cuda))
+        keep &= (ref_info < 100).reshape(-1) & (got_info.cpu() < 100
+                                                ).reshape(-1)
+    else:
+        ref, got = (fn(torch.as_tensor(v, device=dev))
+                    for dev in (torch.device("cpu"), cuda))
+    ref = ref.reshape(1024, -1)
+    got = got.reshape(1024, -1).cpu()
+    if family == "logdet":
+        t0 = torch.as_tensor(v[:, 0, 0] * math.sqrt(2.0))
+        v0 = torch.as_tensor(v[:, 0, 1] * math.sqrt(2.0))
+        ns = fn.keywords["ns"]
+        from scs_tpu_torch.cones.psd import svec_to_mat
+        w = torch.linalg.eigvalsh(svec_to_mat(
+            torch.as_tensor(v[:, 0, 2:]), ns) * math.sqrt(2.0))
+        for res in (logdet.logdet_cone(t0.to(cuda), v0.to(cuda), w.to(cuda)),
+                    spectral.logdet_cone_plain(t0, v0, w)):
+            ok = spectral._logdet_gate(*(r.cpu() for r in res[:3]), t0, v0,
+                                       w)
+            assert bool(ok.all())
+    assert keep.float().mean() >= 0.95
+    err = float((got - ref)[keep].abs().max()) / (1 + np.abs(v).max())
+    tol = 1e-4 if f32 else 1e-8
+    assert err <= (max(tol, 1e-6) if family == "logdet" else tol), err
+
+
+def test_spectral_kernels_launch_and_match_plain(cuda):
+    """The logdet cascade kernel (one warp a cone) and the sum-of-k-largest
+    loop kernel (one thread a cone) against their plain versions on the
+    CPU, on the eigenvalues of random logdet blocks: cones whose Newton
+    converged inside its cap on both sides within 1e-6 (1 + |v|), where
+    Newton's stopping test may stop on either device; on the
+    others (Newton at its cap, or the IPM, where round-off moves the
+    capped point) the card's result passes SCS's KKT gate wherever the
+    plain version's does. The path-following loop within 1e-12 on every
+    cone."""
+    from scs_tpu_torch.cones import spectral
+    from scs_tpu_torch.cones.psd import svec_to_mat
+    from scs_tpu_torch.ops import logdet, sumlargest
+    rng = np.random.RandomState(9)
+    for n in (3, 6, 16):
+        v = 2.0 * rng.randn(256, n * (n + 1) // 2 + 2)
+        w = torch.linalg.eigvalsh(svec_to_mat(torch.as_tensor(v[:, 2:]), n)
+                                  * math.sqrt(2.0))
+        args = [torch.as_tensor(v[:, 0] * math.sqrt(2.0)),
+                torch.as_tensor(v[:, 1] * math.sqrt(2.0)), w]
+        before = logdet.launches
+        got = [a.cpu() for a in logdet.logdet_cone(*(a.to(cuda)
+                                                     for a in args))]
+        assert logdet.launches == before + 1
+        ref = spectral.logdet_cone_plain(*args)
+        keep = (got[3] < 100) & (ref[3] < 100)
+        assert bool(keep.any())
+        scale = 1.0 + float(np.abs(v).max())
+        for g, r in zip(got[:3], ref[:3]):
+            assert float((g - r)[keep].abs().max()) <= 1e-6 * scale
+        ok_card, ok_plain = (spectral._logdet_gate(*res[:3], *args)
+                             for res in (got, ref))
+        assert bool((ok_card | ~ok_plain)[~keep].all())
+    for n in (6, 40):
+        x = -torch.sort(-torch.as_tensor(rng.randn(64, n) * 2.0)).values
+        t0 = torch.as_tensor(rng.randn(64) * 2.0)
+        for k in sorted({1, n // 2, n - 1}):
+            before = sumlargest.launches
+            got = [a.cpu() for a in sumlargest.sum_largest_sorted(
+                t0.to(cuda), x.to(cuda), k)]
+            assert sumlargest.launches == before + 1
+            ref = spectral._sum_largest_sorted_plain(t0, x, k)
+            for g, r in zip(got, ref):
+                assert float((g - r).abs().max()) <= 1e-12 * float(
+                    x.abs().max() + 1)
+
+
+@pytest.mark.parametrize("linsys", ["direct", "indirect"])
+def test_spectral_solve_on_the_card(cuda, linsys):
+    """A small program with all four spectral families in the card's
+    default mode (mixed, the forced float64 polish): solved, its
+    objective within eps_abs + eps_rel |opt| of the planted optimum."""
+    spec = ConeSpec(z=2, l=4, d=(3,), nuc_m=(3,), nuc_n=(2,), ell1=(3,),
+                    sl_n=(3,), sl_k=(1,))
+    p = gen_planted(spec, n=10, seed=107, density=0.5)
+    stg = Settings(linsys=linsys)
+    ws = Workspace(p.problem, spec, p.cone_data, stg)
+    assert ws._mixed
+    sol, info = ws.solve()
+    assert info.status == "solved"
+    assert abs(info.pobj - p.opt) <= stg.eps_abs + stg.eps_rel * abs(p.opt)
+
+
+@pytest.mark.parametrize("shape", [((37, 53), (53, 29)),
+                                   ((8, 3000), (3000, 8)),
+                                   ((3, 24, 2100), (3, 2100, 17))],
+                         ids=["one chunk", "chunked", "batched chunked"])
+def test_ozaki_matmul_on_the_card(cuda, shape):
+    """`ops/ozaki.py` on the card: bf16 slices, their pair products on the
+    tensor cores with float32 accumulation and output (contractions over
+    1024 chunked), combined in float64: within 1e-14 of A's row scale x
+    B's column scale x k of numpy's long-double product, as on the CPU
+    (tests/test_torch_ozaki.py); the bf16 reduction flag is as before."""
+    from scs_tpu_torch.ops import ozaki
+    rng = np.random.RandomState(sum(shape[0]))
+    A, B = rng.randn(*shape[0]), rng.randn(*shape[1])
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_bf16_reduced_precision_reduction
+    C = ozaki.ozaki_matmul(torch.as_tensor(A, device=cuda),
+                           torch.as_tensor(B, device=cuda)).cpu().numpy()
+    assert flags.allow_bf16_reduced_precision_reduction == before
+    T = np.matmul(A.astype(np.longdouble), B.astype(np.longdouble))
+    scale = (np.abs(A).max(-1, keepdims=True)
+             * np.abs(B).max(-2, keepdims=True) * A.shape[-1])
+    assert np.all(np.isfinite(C))
+    assert float(np.max(np.abs((C - T).astype(np.float64)) / scale)) < 1e-14

@@ -171,9 +171,22 @@ def test_proj_dual_cone_matches():
 
 
 def test_proj_cone_outside_slice_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        project.proj_cone(torch.zeros(11, dtype=torch.float64),
-                          scs_tpu_torch.ConeSpec(l=3, d=(2,), ep=1))
+    """The spec that raised until the spectral cones came in (logdet beside
+    exp) now lays out and projects as the JAX package does."""
+    jspec = scs_tpu.ConeSpec(l=3, d=(2,), ep=1)
+    tspec = convert.spec_from_dict(dataclasses.asdict(jspec))
+    jl, tl = j_project.ConeLayout.make(jspec), project.ConeLayout.make(tspec)
+    for f in dataclasses.fields(jl):
+        if f.name != "spec":
+            assert getattr(tl, f.name) == getattr(jl, f.name), f.name
+    x = np.random.RandomState(11).randn(3, jspec.dims()) * 2.0
+    cd = scs_tpu.ConeData.make(jspec)
+    j_proj = jax.jit(lambda xi: j_project.proj_cone(xi, jspec, cd,
+                                                    jnp.ones(()), None)[0])
+    ref = np.stack([np.asarray(j_proj(jnp.asarray(xi))) for xi in x])
+    got = project.proj_cone(t64(x), tspec)[0].numpy()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-10 * (1 + np.abs(x).max()))
 
 
 @pytest.mark.parametrize("mixed", [False, True])

@@ -202,16 +202,33 @@ def test_moreau_identity_and_dual_cone_match_jax():
 
 
 def test_layout_and_unported_cones():
-    spec = convert.spec_from_dict(dataclasses.asdict(
-        scs_tpu.ConeSpec(**MIXED_SPEC)))
+    """The PSD layout's offsets; each spectral family added to it (the
+    specs that raised until the spectral cones came in) lays out with the
+    JAX package's offsets and projects as it does, within 1e-10
+    (1 + |v|)."""
+    jspec = scs_tpu.ConeSpec(**MIXED_SPEC)
+    spec = convert.spec_from_dict(dataclasses.asdict(jspec))
     lay = project.ConeLayout.make(spec)
     assert (lay.q_off, lay.s_off, lay.cs_off, lay.exp_off, lay.pow_off,
             lay.total) == (5, 12, 12 + 6 + 6 + 3, 31, 37, 43)
     assert lay.total == spec.dims()
+    rng = np.random.RandomState(12)
     for extra in (dict(d=(3,)), dict(nuc_m=(2,), nuc_n=(2,)),
                   dict(ell1=(3,)), dict(sl_n=(3,), sl_k=(1,))):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            project.require_supported(dataclasses.replace(spec, **extra))
+        jext = dataclasses.replace(jspec, **extra)
+        ext = dataclasses.replace(spec, **extra)
+        jl, tl = j_project.ConeLayout.make(jext), project.ConeLayout.make(ext)
+        for f in dataclasses.fields(jl):
+            if f.name != "spec":
+                assert getattr(tl, f.name) == getattr(jl, f.name), f.name
+        x = rng.randn(2, ext.dims()) * 2.0
+        cd = scs_tpu.ConeData.make(jext, dtype=F64)
+        j_proj = jax.jit(lambda xi, jext=jext, cd=cd: j_project.proj_cone(
+            xi, jext, cd, jnp.ones(()), None)[0])
+        ref = np.stack([np.asarray(j_proj(jnp.asarray(xi, F64))) for xi in x])
+        got = project.proj_cone(torch.as_tensor(x), ext,
+                                convert.cone_data_from_numpy(ext))[0]
+        _close(got.numpy(), ref, x, 1e-10)
 
 
 @pytest.mark.parametrize("kw", [
