@@ -67,7 +67,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      logdet cones' cascade kernel (`ops/logdet.py`, K6: Newton, SCS's KKT
      gate, the IPM) and the sum-of-k-largest loop kernel
      (`ops/sumlargest.py`, K7) against their plain versions on the CPU at
-     the projections' shapes, with times; each spectral run (logdet, nuclear,
+     the projections' shapes, with times (K6 also on its Newton-only and
+     its IPM cones, and twice for the same bits), beside an empty kernel's
+     launch; both kernels at the orders where their layouts change (K6
+     with a cone that runs the IPM); each spectral run (logdet, nuclear,
      ell1, sum-largest) projected on the card with its eigh or SVD in
      float64 and in float32 against the CPU's run of the same function
      (`SPECTRAL_TOL`, `LOGDET_TOL`), with host ms and host syncs per
@@ -1407,15 +1410,10 @@ def _logdet_vectors(v: np.ndarray, ns: int):
             np.linalg.eigvalsh(M))
 
 
-def logdet_kernel_case(spec, lead: tuple, seed: int) -> dict:
-    """The logdet cascade kernel (`ops/logdet.py`) against its plain
-    version on the CPU, on the eigenvalues of random logdet segments at
-    the shapes the projections give it: cones whose Newton converged
-    inside its cap on both sides within LOGDET_TOL (1 + |v|),
-    the others (Newton at its cap, or the IPM) through SCS's KKT gate on
-    both sides; kernel time (CUDA events), the plain version's (a second
-    run on the CPU, the only device it runs on; host clock), and the
-    bound from this run's Newton and IPM iteration counts."""
+def logdet_kernel_inputs(spec, lead: tuple, seed: int) -> list:
+    """[(ns, count, [t0, v0, w])] of each logdet run of `spec` at lanes
+    `lead`: the CPU float64 inputs of the logdet cascade kernel, as the
+    projections give it (phase 13, tools/torch_logdet_chain.py)."""
     out = []
     for family, _, ct, width, _ in project.spectral_runs(spec):
         if family != "logdet":
@@ -1425,13 +1423,90 @@ def logdet_kernel_case(spec, lead: tuple, seed: int) -> dict:
         count = int(np.prod(shape))
         v = _spectral_inputs(family, shape, width, seed + ns).reshape(
             count, width)
-        args = [torch.as_tensor(a) for a in _logdet_vectors(v, ns)]
+        out.append((ns, count, [torch.as_tensor(a)
+                                for a in _logdet_vectors(v, ns)]))
+    return out
+
+
+def logdet_plain_work(args) -> tuple:
+    """The plain version's result on `args` (`spectral.logdet_cone_plain`)
+    and the work its cones took, summed over them: the Newton iterations
+    that took a step and their line searches' trial points (and the most
+    one search tried), the IPM iterations that took a step and their merit
+    evaluations. Of the IPM's nonmonotone search only the first evaluation
+    is counted, so the work is a lower bound (phase 13's bound,
+    tools/torch_logdet_chain.py)."""
+    work = dict.fromkeys(("newton_its", "newton_trials", "newton_trials_max",
+                          "ipm_its", "ipm_merits"), 0)
+    firsts = []
+    first, newton_step, ipm_step = (spectral._first, spectral._newton_step,
+                                    spectral._ipm_step)
+
+    def spy_first(passes):
+        firsts.append(first(passes))
+        return firsts[-1]
+
+    def counted_newton(v, x, obj, it, ngrad, done, failed, *consts):
+        act = (it < spectral._LC_MAX_ITER) & ~done & ~failed
+        firsts.clear()
+        out = newton_step(v, x, obj, it, ngrad, done, failed, *consts)
+        stepped = act & ~out[5] & ~out[6]
+        trials = torch.where(stepped, torch.clamp_max(
+            firsts[0], spectral._LC_MAX_LS) + 1, 0)
+        work["newton_its"] += int(stepped.sum())
+        work["newton_trials"] += int(trials.sum())
+        work["newton_trials_max"] = max(work["newton_trials_max"],
+                                        int(trials.max()))
+        return out
+
+    def counted_ipm(mehrotra):
+        step = ipm_step(mehrotra)
+
+        def counted(u1, r, z, s, it, done, *rest):
+            act = (it < spectral._IPM_MAX_ITER) & ~done
+            firsts.clear()
+            out = step(u1, r, z, s, it, done, *rest)
+            stepped = act & ~out[5]
+            # the affine search's evaluations up to the first that passed,
+            # and the nonmonotone search's first
+            work["ipm_its"] += int(stepped.sum())
+            work["ipm_merits"] += int(torch.where(stepped, firsts[0] + 2,
+                                                  0).sum())
+            return out
+        return counted
+
+    spectral._first, spectral._newton_step = spy_first, counted_newton
+    spectral._ipm_step = counted_ipm
+    try:
         ref = spectral.logdet_cone_plain(*(a.clone() for a in args))
+    finally:
+        spectral._first, spectral._newton_step = first, newton_step
+        spectral._ipm_step = ipm_step
+    return ref, work
+
+
+def logdet_kernel_case(spec, lead: tuple, seed: int) -> dict:
+    """The logdet cascade kernel (`ops/logdet.py`) against its plain
+    version on the CPU, on the eigenvalues of random logdet segments at
+    the shapes the projections give it: cones whose Newton converged
+    inside its cap on both sides within LOGDET_TOL (1 + |v|),
+    the others (Newton at its cap, or the IPM) through SCS's KKT gate on
+    both sides; two launches give the same bits; kernel time (CUDA
+    events) on all cones, on the cones Newton settles alone and on the
+    cones that run the IPM, the plain version's (a second run on the CPU,
+    the only device it runs on; host clock), and the bound from this
+    work the plain version counted on this run's cones."""
+    out = []
+    for ns, count, args in logdet_kernel_inputs(spec, lead, seed):
+        ref, work = logdet_plain_work(args)
         t_plain = time.perf_counter()
         spectral.logdet_cone_plain(*(a.clone() for a in args))
         plain_ms = (time.perf_counter() - t_plain) * 1e3
         dev = [a.cuda() for a in args]
-        got = [a.cpu() for a in logdet.logdet_cone(*dev)]
+        first = logdet.logdet_cone(*dev)
+        again = logdet.logdet_cone(*dev)
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        got = [a.cpu() for a in first]
         ipm = (ref[3] >= 100) | (got[3] >= 100)
         scale = 1.0 + float(np.abs(np.concatenate(
             [a.reshape(count, -1).numpy() for a in args], 1)).max())
@@ -1440,47 +1515,143 @@ def logdet_kernel_case(spec, lead: tuple, seed: int) -> dict:
         gate = [bool(spectral._logdet_gate(*res[:3], *args)[ipm].all())
                 for res in (got, ref)]
         ms = median_ms(lambda: logdet.logdet_cone(*dev))
+        # step 0's split: the cones Newton settles alone, the IPM cones
+        split = {}
+        for name, mask in (("newton", got[3] < 1000), ("ipm", got[3] >= 1000)):
+            idx = torch.nonzero(mask).squeeze(-1).cuda()
+            sub = [a[idx] for a in dev]
+            split[f"{name}_ms"] = (median_ms(lambda: logdet.logdet_cone(*sub))
+                                   if idx.numel() else None)
         its = got[3] % 1000
-        variants = got[3] // 1000
-        # operations: per Newton iteration ~(30 + 61 x 8) (n + 1) (the
-        # step and a line search of up to 61 trial points of n logs), per
-        # IPM iteration ~(6 x 40 + 120 x 12) (n + 3) (two KKT solves of
-        # three refinement passes, up to 120 merit evaluations); 100 IPM
-        # iterations a variant run
-        ops = float((its * 518 * (ns + 1)).sum()
-                    + (variants * 100 * 1680 * (ns + 3)).sum())
+        # operations: ~30 (n + 1) a Newton step and ~8 (n + 1) a trial
+        # point of its line search (n logs); ~6 x 40 (n + 3) an IPM
+        # iteration (two KKT solves of three refinement passes) and ~12
+        # (n + 3) a merit evaluation; the steps, trial points and
+        # evaluations the plain version took on these cones
+        ops = float((30 * work["newton_its"] + 8 * work["newton_trials"])
+                    * (ns + 1) + (240 * work["ipm_its"]
+                                  + 12 * work["ipm_merits"]) * (ns + 3))
         nbytes = count * (2 * (ns + 2) * 8 + 4)
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP64_FLOPS) * 1e3
+        lay = logdet.launch_config(ns)
         case = {"ns": ns, "cones": count, "gated_cones": int(ipm.sum()),
                 "ipm_cones": int(((ref[3] >= 1000) | (got[3] >= 1000)).sum()),
-                "newton_its_max": int(its.max()), "max_abs_err": err,
-                "gate_ok": gate, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
+                "newton_its_max": int(its.max()), "plain_work": work,
+                "max_abs_err": err,
+                "gate_ok": gate, "repeats": same, "ms": ms, **split,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": ("operations" if ops / FP64_FLOPS
                              > nbytes / HBM_BYTES_PER_S else "bytes"),
-                "library_ms": None}
+                "library_ms": None, "layout": lay._asdict()}
         print(f"logdet_cone ns={ns} cones={count}: max_abs_err "
               f"{err:.3e} (1 + |v|) on the {count - case['gated_cones']} "
               f"cones whose Newton converged, {case['gated_cones']} held "
               f"to the KKT gate ({case['ipm_cones']} through the IPM; gate "
               f"passed: card {gate[0]}, plain {gate[1]}), Newton "
-              f"iterations at most {case['newton_its_max']}, kernel "
-              f"{ms:.4f} ms, plain version on the CPU {plain_ms:.1f} ms, "
-              f"bound {bound_ms:.4f} ms ({case['bound_by']})")
-        check(err <= LOGDET_TOL and all(gate),
-              f"logdet_cone ns={ns}: {err:.2e} from the plain version, or "
-              f"an IPM cone fails the gate ({gate})")
+              f"iterations at most {case['newton_its_max']}, two launches "
+              f"bit for bit equal {same}, kernel {ms:.4f} ms (the Newton-only "
+              f"cones {split['newton_ms'] or 0:.4f}, the IPM cones "
+              f"{split['ipm_ms'] or 0:.4f}), plain version on the CPU "
+              f"{plain_ms:.1f} ms, bound {bound_ms:.6f} ms "
+              f"({case['bound_by']}; the plain version's work {work}); "
+              f"layout {tuple(lay)}")
+        check(err <= LOGDET_TOL and all(gate) and same,
+              f"logdet_cone ns={ns}: {err:.2e} from the plain version, an "
+              f"IPM cone fails the gate ({gate}), or two launches differ "
+              f"({same})")
         out.append(case)
     return out
 
 
-def sum_largest_kernel_case(spec, lead: tuple, seed: int) -> list:
-    """The path-following kernel (`ops/sumlargest.py`) against its plain
-    version on the CPU, on the sorted eigenvalues of random sum-largest
-    segments at the shapes the projections give it, within
-    SPECTRAL_TOL[False] (1 + |v|); kernel time (CUDA events), the plain
-    version's (a second run on the CPU; host clock), and the bound from
-    this run's pass counts."""
+# orders crossing every layout of the logdet kernel (lanes a group 4, 8,
+# 16, 32; one and two entries a lane in registers; shared memory with a
+# block of four warps a cone, with three at n = 400; the global scratch at
+# n = 1300) and the sum-of-k-largest kernel's layouts (rows read in place
+# below n = 14; staged, 128 cones a block, 96 at n = 300, 231 KB)
+LOGDET_EDGE_NS = (1, 2, 5, 6, 13, 29, 30, 60, 120, 400, 1300)
+SUM_LARGEST_EDGE_NS = (2, 6, 13, 14, 40, 300)
+
+
+def _logdet_ipm_blocks(ns: int, count: int, seed: int) -> list:
+    """[t0, v0, w] of `count` random logdet blocks of order ns on the CPU,
+    the first of them one that runs the IPM, found among draws of 128: its
+    Newton result fails SCS's KKT gate by at least twice a tolerance, with
+    v off its floor, so that another device's round-off in Newton does not
+    let it pass (the largest such failure). Draws of fewer blocks where
+    one block is large (4 of order 1300)."""
+    rng = np.random.RandomState(seed)
+    width = ns * (ns + 1) // 2 + 2
+    for _ in range(32):
+        v = 2.0 * rng.randn(max(count, min(128, (1 << 22) // width)), width)
+        args = [torch.as_tensor(a) for a in _logdet_vectors(v, ns)]
+        tp, vp, xp, _ = spectral._newton(*args)
+        res = torch.stack(spectral.check_logdet_opt(tp, vp, xp, *args))
+        res = res.abs().amax(0) / 1e-2
+        ok = (~spectral._logdet_gate(tp, vp, xp, *args) & (res >= 2.0)
+              & (vp > 1e-12))
+        if ok.any():
+            b = int(torch.where(ok, res, -1.0).argmax())
+            rows = torch.cat([torch.tensor([b]), torch.arange(count - 1)
+                              + (torch.arange(count - 1) >= b)])
+            return [a[rows] for a in args]
+    raise RuntimeError(f"no logdet block of order {ns} runs the IPM")
+
+
+def spectral_kernel_edges(seed: int) -> dict:
+    """Both spectral kernels at the orders where their layouts change,
+    against their plain versions on the CPU: the logdet kernel on 64 cones
+    an order (4 from n = 400), the first running the IPM, held as in
+    logdet_kernel_case
+    (and a cone whose Newton stopped at v's floor of 1e-14, unconverged,
+    to the gate); the sum-of-k-largest kernel on 300 cones for k = 1,
+    n / 2, n - 1 within SPECTRAL_TOL[False] (1 + |v|)."""
+    worst = {"logdet": 0.0, "sum_largest": 0.0}
+    for ns in LOGDET_EDGE_NS:
+        args = _logdet_ipm_blocks(ns, 64 if ns <= 120 else 4, seed + ns)
+        ref = spectral.logdet_cone_plain(*(a.clone() for a in args))
+        got = [a.cpu() for a in logdet.logdet_cone(*(a.cuda()
+                                                     for a in args))]
+        keep = (got[3] < 100) & (ref[3] < 100) & (got[1] > 1e-14) & (
+            ref[1] > 1e-14)
+        scale = 1.0 + float(max(a.abs().max() for a in args))
+        err = max(float((g - r)[keep].abs().max()) if keep.any() else 0.0
+                  for g, r in zip(got[:3], ref[:3])) / scale
+        gate = [bool(spectral._logdet_gate(*res[:3], *args)[~keep].all())
+                for res in (got, ref)]
+        worst["logdet"] = max(worst["logdet"], err)
+        print(f"logdet_cone edge ns={ns} ({tuple(logdet.launch_config(ns))})"
+              f": max_abs_err {err:.3e} on {int(keep.sum())} cones, "
+              f"{int((~keep).sum())} held to the gate (card {gate[0]}, "
+              f"plain {gate[1]}), the first cone's info card "
+              f"{int(got[3][0])}, plain {int(ref[3][0])}")
+        check(err <= LOGDET_TOL and all(gate) and int(ref[3][0]) >= 1000
+              and bool(all(torch.isfinite(g).all() for g in got[:3])),
+              f"logdet_cone edge ns={ns}: {err:.2e}, gate {gate}, or its "
+              f"first cone ran no IPM")
+    rng = np.random.RandomState(seed)
+    for ns in SUM_LARGEST_EDGE_NS:
+        x = -torch.sort(-torch.as_tensor(rng.randn(300, ns) * 2.0)).values
+        t0 = torch.as_tensor(rng.randn(300) * 2.0)
+        scale = 1.0 + float(max(x.abs().max(), t0.abs().max()))
+        for k in sorted({1, ns // 2, ns - 1}):
+            got = [a.cpu() for a in sumlargest.sum_largest_sorted(
+                t0.cuda(), x.cuda(), k)]
+            ref = spectral._sum_largest_sorted_plain(t0, x, k)
+            err = max(float((g - r).abs().max())
+                      for g, r in zip(got, ref)) / scale
+            worst["sum_largest"] = max(worst["sum_largest"], err)
+            check(err <= SPECTRAL_TOL[False], f"sum_largest_sorted edge "
+                  f"n={ns} k={k}: {err:.2e} from the plain version")
+        print(f"sum_largest_sorted edge n={ns} "
+              f"({tuple(sumlargest.launch_config(ns))}): k = 1, n / 2, "
+              f"n - 1 within {worst['sum_largest']:.3e} so far")
+    return worst
+
+
+def sum_largest_kernel_inputs(spec, lead: tuple, seed: int) -> list:
+    """[(ns, k, count, (t0, x))] of each sum-largest run of `spec` at lanes
+    `lead`: the CPU float64 inputs of the path-following kernel, as the
+    projections give it (phase 13, tools/torch_sum_largest_rows.py)."""
     out = []
     for family, _, ct, width, fn in project.spectral_runs(spec):
         if family != "sum-largest":
@@ -1492,8 +1663,21 @@ def sum_largest_kernel_case(spec, lead: tuple, seed: int) -> list:
             count, width)
         idx, uscale, _, _, _ = psd._tri_indices(ns)
         w = np.linalg.eigvalsh(v[:, 1:][:, idx] * uscale * math.sqrt(2.0))
-        args = (torch.as_tensor(v[:, 0] * math.sqrt(2.0)),
-                torch.as_tensor(np.ascontiguousarray(w[:, ::-1])))
+        out.append((ns, k, count, (
+            torch.as_tensor(v[:, 0] * math.sqrt(2.0)),
+            torch.as_tensor(np.ascontiguousarray(w[:, ::-1])))))
+    return out
+
+
+def sum_largest_kernel_case(spec, lead: tuple, seed: int) -> list:
+    """The path-following kernel (`ops/sumlargest.py`) against its plain
+    version on the CPU, on the sorted eigenvalues of random sum-largest
+    segments at the shapes the projections give it, within
+    SPECTRAL_TOL[False] (1 + |v|); kernel time (CUDA events), the plain
+    version's (a second run on the CPU; host clock), and the bound from
+    this run's pass counts."""
+    out = []
+    for ns, k, count, args in sum_largest_kernel_inputs(spec, lead, seed):
         t_ref, x_ref, passes = spectral._sum_largest_sorted_plain(
             *args, k, passes=True)
         t_plain = time.perf_counter()
@@ -1698,10 +1882,14 @@ def spectral_phase(card: str, f32: BatchChild) -> dict:
     t0 = time.perf_counter()
     sspec_big = spectral_cones.large_spectral_spec()
     sspec = spectral_cones.headline_spectral_spec()
+    floor_ms = median_ms(sumlargest.empty_launch)
+    print(f"empty kernel launch {floor_ms:.4f} ms (the floor beside the "
+          f"logdet and sum_largest_sorted kernels' times)")
     kcases = (logdet_kernel_case(sspec, (1024,), 300)
               + logdet_kernel_case(sspec_big, (), 310))
     scases = (sum_largest_kernel_case(sspec, (1024,), 320)
               + sum_largest_kernel_case(sspec_big, (), 330))
+    edges = spectral_kernel_edges(340)
     ozaki_err = ozaki_product()
     rows = (spectral_projection_rows(sspec_big, (), "large")
             + spectral_projection_rows(sspec, (1024,), "batch B=1024"))
@@ -1777,8 +1965,8 @@ def spectral_phase(card: str, f32: BatchChild) -> dict:
     print(f"{card}, phase 13 (spectral) {time.perf_counter() - t0:.1f} s, "
           f"peak device memory of the last batch "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {"kernel": kcases, "sl_kernel": scases, "rows": rows,
-            "ozaki_err": ozaki_err,
+    return {"kernel": kcases, "sl_kernel": scases, "edges": edges,
+            "floor_ms": floor_ms, "rows": rows, "ozaki_err": ozaki_err,
             "syncs": syncs, "large": big, "batch": runs}
 
 
@@ -2275,7 +2463,8 @@ def main() -> int:
         "source": "scs_tpu_torch/csrc/logdet.cu",
         "replaces": "scs_tpu/cones/spectral.py:193",
         "launches": spec13["large"]["direct mixed"]["k6"],
-        "max_abs_err": max(c["max_abs_err"] for c in spec13["kernel"]),
+        "max_abs_err": max([c["max_abs_err"] for c in spec13["kernel"]]
+                           + [spec13["edges"]["logdet"]]),
         "ms": spec13["kernel"][0]["ms"],
         "plain_ms": spec13["kernel"][0]["plain_ms"],
         "bound_ms": spec13["kernel"][0]["bound_ms"],
@@ -2286,7 +2475,8 @@ def main() -> int:
         "source": "scs_tpu_torch/csrc/sumlargest.cu",
         "replaces": "scs_tpu/cones/spectral.py:99",
         "launches": spec13["large"]["direct mixed"]["k7"],
-        "max_abs_err": max(c["max_abs_err"] for c in spec13["sl_kernel"]),
+        "max_abs_err": max([c["max_abs_err"] for c in spec13["sl_kernel"]]
+                           + [spec13["edges"]["sum_largest"]]),
         "ms": spec13["sl_kernel"][0]["ms"],
         "plain_ms": spec13["sl_kernel"][0]["plain_ms"],
         "bound_ms": spec13["sl_kernel"][0]["bound_ms"],

@@ -1,5 +1,8 @@
 """The sum-of-k-largest cone's path-following loop on the card:
-`csrc/sumlargest.cu`, one thread per cone.
+`csrc/sumlargest.cu`, one thread per cone, a block's rows staged in shared
+memory from n = 14 on, read in place below (`launch_config`).
+`empty_launch` launches a kernel that does nothing, the floor against
+which a launch's time is read.
 
 Replaces no Pallas kernel. The JAX package leaves the loop of
 `scs_tpu/cones/spectral.py` (proj_sum_largest_sorted, :99-145) to XLA;
@@ -17,6 +20,7 @@ kernel's launches since it was last set to 0.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -26,6 +30,38 @@ launches = 0
 
 _lib_cache = None
 
+# shared memory a block may take on an H100 (227 KB), and cones a block
+# where their rows fit
+SHARED_MAX = 232448
+_CONES = 128
+# the least n whose rows are staged: below it a thread's few passes cost
+# less than the block's loads, barrier and stores (1024 cones on an H100,
+# tools/torch_sum_largest_rows.py --sweep: n = 12 0.0111 ms in place,
+# 0.0117 staged; n = 14 0.0131 and 0.0125; PERF.md)
+STAGE_MIN_N = 14
+
+
+class Layout(NamedTuple):
+    """Cones (one a thread) and threads a block, the rows' stride in
+    doubles (odd, or 0 where even one row does not fit and the passes read
+    it in device memory) and the dynamic shared memory a block."""
+
+    cones_per_block: int
+    threads: int
+    stride: int
+    shared_bytes: int
+
+
+def launch_config(n: int) -> Layout:
+    """The layout for rows of n: in place below STAGE_MIN_N; staged at an
+    odd stride of n or n + 1 doubles, 128 cones a block while their rows
+    fit in 227 KB, fewer beyond; in place where one row does not fit."""
+    stride = n | 1
+    cones = min(_CONES, SHARED_MAX // (8 * stride))
+    if n < STAGE_MIN_N or cones == 0:
+        return Layout(_CONES, _CONES, 0, 0)
+    return Layout(cones, 32 * -(-cones // 32), stride, 8 * stride * cones)
+
 
 def _lib() -> ctypes.CDLL:
     global _lib_cache
@@ -33,8 +69,10 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("sumlargest")
         vp = ctypes.c_void_p
         lib.scs_sum_largest.argtypes = [vp] * 4 + [ctypes.c_longlong] + [
-            ctypes.c_int] * 2 + [vp]
+            ctypes.c_int] * 6 + [vp]
         lib.scs_sum_largest.restype = ctypes.c_int
+        lib.scs_empty_launch.argtypes = [vp]
+        lib.scs_empty_launch.restype = ctypes.c_int
         lib.scs_sumlargest_error_string.argtypes = [ctypes.c_int]
         lib.scs_sumlargest_error_string.restype = ctypes.c_char_p
         _lib_cache = lib
@@ -71,13 +109,24 @@ def sum_largest_sorted(t0: torch.Tensor, x: torch.Tensor, k: int):
     if L == 0:
         return t, xo
     lib = _lib()
+    lay = launch_config(n)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.scs_sum_largest(t0.data_ptr(), x.data_ptr(), t.data_ptr(),
-                                  xo.data_ptr(), L, n, k, stream)
+                                  xo.data_ptr(), L, n, k, *lay, stream)
     if err != 0:
         msg = lib.scs_sumlargest_error_string(err).decode()
         raise RuntimeError(f"sum_largest_sorted kernel launch failed: {msg} "
                            f"({err})")
     launches += 1
     return t, xo
+
+
+def empty_launch() -> None:
+    """Launch, on the current stream of the current card, a kernel of one
+    warp that does nothing."""
+    lib = _lib()
+    err = lib.scs_empty_launch(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.scs_sumlargest_error_string(err).decode()
+        raise RuntimeError(f"empty kernel launch failed: {msg} ({err})")

@@ -681,9 +681,9 @@ def test_spectral_family_on_the_card_matches_the_plain_version(cuda, family,
 
 
 def test_spectral_kernels_launch_and_match_plain(cuda):
-    """The logdet cascade kernel (one warp a cone) and the sum-of-k-largest
-    loop kernel (one thread a cone) against their plain versions on the
-    CPU, on the eigenvalues of random logdet blocks: cones whose Newton
+    """The logdet cascade kernel and the sum-of-k-largest loop kernel
+    against their plain versions on the CPU, on the eigenvalues of random
+    logdet blocks: cones whose Newton
     converged inside its cap on both sides within 1e-6 (1 + |v|), where
     Newton's stopping test may stop on either device; on the
     others (Newton at its cap, or the IPM, where round-off moves the
@@ -703,7 +703,7 @@ def test_spectral_kernels_launch_and_match_plain(cuda):
         before = logdet.launches
         got = [a.cpu() for a in logdet.logdet_cone(*(a.to(cuda)
                                                      for a in args))]
-        assert logdet.launches == before + 1
+        assert logdet.launches == before + 2
         ref = spectral.logdet_cone_plain(*args)
         keep = (got[3] < 100) & (ref[3] < 100)
         assert bool(keep.any())
@@ -725,6 +725,92 @@ def test_spectral_kernels_launch_and_match_plain(cuda):
             for g, r in zip(got, ref):
                 assert float((g - r).abs().max()) <= 1e-12 * float(
                     x.abs().max() + 1)
+
+
+# orders crossing every group width (lanes 4, 8, 16, 32), the two register
+# layouts, and shared memory with a block of warps a cone, at L = 1, 5,
+# 1024; shared memory with three warps a cone (n = 400) and the global
+# scratch (n = 1300) at L = 1, 5
+LOGDET_NS = [1, 2, 5, 6, 13, 29, 30, 60, 120]
+LOGDET_CASES = ([(n, L) for n in LOGDET_NS for L in (1, 5, 1024)]
+                + [(n, L) for n in (400, 1300) for L in (1, 5)])
+
+
+def _logdet_case(n, L):
+    """L random logdet blocks of order n (t0, v0, eigenvalues) on the CPU,
+    the first of them one that runs the IPM (`chip_smoke.
+    _logdet_ipm_blocks`, run from the repo root), and their scale 1 +
+    max |v|."""
+    import chip_smoke
+    args = chip_smoke._logdet_ipm_blocks(n, L, 7 + n)
+    return args, 1.0 + float(max(a.abs().max() for a in args))
+
+
+@pytest.mark.parametrize("n, L", LOGDET_CASES)
+def test_logdet_kernel_layouts_match_plain(cuda, n, L):
+    """The logdet cascade kernel in every layout of `ops/logdet.
+    launch_config` (lanes a group, registers or shared memory, a warp or
+    a block of warps a cone, the IPM in its own launch) against its plain
+    version on the CPU: cones whose Newton converged inside its cap on
+    both sides within 1e-6 (1 + |v|), Newton's stopping tolerance; on the
+    others (Newton at its cap or stopped at v's floor of 1e-14, where it
+    gives up unconverged, or the IPM) the card's result passes SCS's KKT
+    gate wherever the plain version's does. The first cone runs the IPM
+    on both sides."""
+    from scs_tpu_torch.cones import spectral
+    from scs_tpu_torch.ops import logdet
+    args, scale = _logdet_case(n, L)
+    before = logdet.launches
+    got = [a.cpu() for a in logdet.logdet_cone(*(a.to(cuda) for a in args))]
+    assert logdet.launches == before + 2
+    ref = spectral.logdet_cone_plain(*args)
+    assert int(got[3][0]) >= 1000 and int(ref[3][0]) >= 1000
+    keep = (got[3] < 100) & (ref[3] < 100) & (got[1] > 1e-14) & (
+        ref[1] > 1e-14)
+    for g, r in zip(got[:3], ref[:3]):
+        assert bool(torch.isfinite(g).all())
+        if keep.any():
+            assert float((g - r)[keep].abs().max()) <= 1e-6 * scale
+    ok_card, ok_plain = (spectral._logdet_gate(*res[:3], *args)
+                         for res in (got, ref))
+    assert bool((ok_card | ~ok_plain)[~keep].all())
+
+
+@pytest.mark.parametrize("n", [6, 60, 120])
+def test_logdet_kernel_repeats_bit_for_bit(cuda, n):
+    """Two launches of the logdet kernel on the same inputs, IPM cones
+    among them: the same bits (no sum depends on timing, and a line
+    search takes the first passing trial point whatever the groups)."""
+    from scs_tpu_torch.ops import logdet
+    args, _ = _logdet_case(n, 1024)
+    dev = [a.to(cuda) for a in args]
+    first, second = (logdet.logdet_cone(*dev) for _ in range(2))
+    assert int((first[3] >= 1000).sum()) >= 1
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [2, 6, 13, 14, 40, 300])
+def test_sum_largest_kernel_layouts_match_plain(cuda, n):
+    """The sum-of-k-largest kernel with its rows read in place (n < 14) or
+    staged in shared memory, 128 cones a block or, at n = 300, 96 (231
+    KB): within 1e-12 of its plain version for k = 1, n / 2, n - 1, over
+    blocks of which the last is partly filled."""
+    from scs_tpu_torch.cones import spectral
+    from scs_tpu_torch.ops import sumlargest
+    rng = np.random.RandomState(n)
+    L = 300
+    x = -torch.sort(-torch.as_tensor(rng.randn(L, n) * 2.0)).values
+    t0 = torch.as_tensor(rng.randn(L) * 2.0)
+    for k in sorted({1, n // 2, n - 1}):
+        before = sumlargest.launches
+        got = [a.cpu() for a in sumlargest.sum_largest_sorted(
+            t0.to(cuda), x.to(cuda), k)]
+        assert sumlargest.launches == before + 1
+        ref = spectral._sum_largest_sorted_plain(t0, x, k)
+        for g, r in zip(got, ref):
+            assert float((g - r).abs().max()) <= 1e-12 * float(
+                x.abs().max() + 1)
 
 
 @pytest.mark.parametrize("linsys", ["direct", "indirect"])

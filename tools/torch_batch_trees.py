@@ -4,14 +4,19 @@ repository in one run on one CUDA card, in turns, to tell a change in a
 batch's wall time from its run-to-run spread.
 
     python3 tools/torch_batch_trees.py --trees chip_check/parent . \\
-        [--linsys indirect] [--batch 1024] --out batch_trees.json
+        [--linsys indirect] [--batch 1024] [--family spectral] \\
+        [--mode f64-state|pure] --out batch_trees.json
 
 The batch is --batch planted problems of bench.py's headline family
-(z=40, l=120, eight SOC blocks, n=100, seeds from 1000), solved by
+(z=40, l=120, eight SOC blocks, n=100, seeds from 1000), or with --family
+spectral of phase 13's spectral headline family
+(`models/spectral_cones.headline_spectral_spec`), solved by
 make_chunked_batch_solver with Settings(linsys=--linsys, chunk_iters=250)
 in its default mode (mixed, float32 state on the card), as phases 5 and 7
-of chip_smoke.py do. Each run is a fresh process that imports the tree's
-scs_tpu_torch and solves through this tree's chip_smoke.solve_batch, with
+of chip_smoke.py do, or with --mode f64-state (fast_f32=False) or pure
+(mixed_precision=False), as phase 13 solves the spectral batch. Each run
+is a fresh process that imports the tree's scs_tpu_torch and solves
+through this tree's chip_smoke.solve_batch, with
 its correctness gates (status, SCS's termination test in float64, the
 objective within 5e-3 (1 + |opt|) of the planted optimum). The trees run
 in the order given and then in reverse (A B B A for two). For each run:
@@ -34,7 +39,7 @@ ROOT = Path(__file__).resolve().parent.parent
 SLOWEST = 5
 
 
-def worker(tree: str, linsys: str, B: int) -> dict:
+def worker(tree: str, linsys: str, B: int, family: str, mode: str) -> dict:
     root = Path(tree).resolve()
     sys.path.insert(0, str(root))
     mod = importlib.util.spec_from_file_location("chip_smoke",
@@ -45,10 +50,14 @@ def worker(tree: str, linsys: str, B: int) -> dict:
     if not pkg.is_relative_to(root):
         raise RuntimeError(f"{tree}: scs_tpu_torch imported from {pkg}")
     cs._build.build()
-    batch = cs.headline_batch(cs.HEADLINE, B, 1000)
-    res = cs.solve_batch(cs.HEADLINE, batch,
-                         cs.Settings(linsys=linsys, chunk_iters=250),
-                         f"{tree}: headline batch {linsys}", tol=5e-3)
+    spec = (cs.spectral_cones.headline_spectral_spec()
+            if family == "spectral" else cs.HEADLINE)
+    batch = cs.headline_batch(spec, B, 1000)
+    kw = {"f64-state": dict(fast_f32=False),
+          "pure": dict(mixed_precision=False)}.get(mode, {})
+    res = cs.solve_batch(spec, batch,
+                         cs.Settings(linsys=linsys, chunk_iters=250, **kw),
+                         f"{tree}: {family} batch {linsys} {mode}", tol=5e-3)
     iters = np.asarray(res["iters"])
     slow = np.argsort(-iters, kind="stable")[:SLOWEST]
     return {"tree": tree, "card": cs.card_line(), "wall_s": res["wall"],
@@ -69,11 +78,16 @@ def main() -> int:
     ap.add_argument("--linsys", default="indirect",
                     choices=("indirect", "direct"))
     ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--family", default="headline",
+                    choices=("headline", "spectral"))
+    ap.add_argument("--mode", default="default",
+                    choices=("default", "f64-state", "pure"))
     ap.add_argument("--out", default="batch_trees.json")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        res = worker(args.worker, args.linsys, args.batch)
+        res = worker(args.worker, args.linsys, args.batch, args.family,
+                     args.mode)
         Path(args.out).write_text(json.dumps(res))
         return 0
 
@@ -85,7 +99,8 @@ def main() -> int:
         part = out.parent / f"batch_trees_run{i}.json"
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--worker", tree, "--linsys", args.linsys,
-                        "--batch", str(args.batch), "--out", str(part)],
+                        "--batch", str(args.batch), "--family", args.family,
+                        "--mode", args.mode, "--out", str(part)],
                        check=True, timeout=1200)
         runs.append(json.loads(part.read_text()))
         part.unlink()
@@ -104,6 +119,7 @@ def main() -> int:
           + ", ".join(f"{t} {v}" for t, v in same.items()))
     out.write_text(json.dumps({"card": runs[0]["card"], "order": order,
                                "linsys": args.linsys, "batch": args.batch,
+                               "family": args.family, "mode": args.mode,
                                "same_iters_per_tree": same, "runs": runs},
                               indent=1))
     return 0
