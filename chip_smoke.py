@@ -85,8 +85,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      its first SPECTRAL_F32_LANES lanes, every mixed lane through the
      forced polish, every lane held to SCS's termination test and to the
      pure float64 run;
-  9. last, a profile of 25 iterations of the large SOCP, mixed, and of
-     25 batched steps of the headline batch's float32-state phase
+ 14. the sparse problems (`demo_sparse`, blocked-ELL operands,
+     `ops/sparse.py`): K2 on the full instance's A (12500 block-rows of 8
+     x 256) and A' (8000 of 8 x 768), on a band of 75000 block-rows (more
+     than the grid's 65535: two launches) and, with K1 on the dense tails,
+     on the tails fixture at 4000 x 3000, each against its plain version
+     on the card and a float64 scipy product within 1e-13 (1 + max |A||x|),
+     with times of K2, the gather, the plain version, the whole apply and
+     torch.mv on a float64 CSR tensor beside K2's bound; the full instance
+     (K = 500 stages: 100000 x 64000, 25.57M nonzeros, seed 0, eps 1e-4)
+     through the indirect backend mixed (K2 counted) and pure float64,
+     each held to its planted optimum and SCS's termination test; the cut
+     instance (SPARSE_CUT_STAGES stages, n = 8192, the widths unchanged)
+     through the direct backend pure and mixed, sparse against dense, and
+     through the indirect backend in pure float64 twice, bit for bit;
+  9. last, a profile of 25 iterations of the large SOCP, mixed, of 25
+     batched steps of the headline batch's float32-state phase and of 25
+     iterations of phase 14's full sparse instance, mixed
      (launches, device busy share, the kernels that take the most device
      time, the operators that take the most host time), and the batched
      Anderson QR against torch.linalg.qr.
@@ -101,11 +116,13 @@ Phases 3-6 run the direct backend (`Settings(linsys="direct")`).
 Each phase ends with a line `phase N done at T s` (seconds since the
 start). The whole run, the build included, has to end inside 1200 s on
 one H100: that is the time a caller of this script gives it.
-The second-to-last line is a JSON object with one entry per kernel (K1-K7),
-the last line {"ok": true, "device": {...}}.
+The second-to-last line is a JSON object with one entry per kernel (K1-K7)
+and per sparse use of K2 and K1 (phase 14), the last line {"ok": true,
+"device": {...}}.
 """
 
 import atexit
+import dataclasses
 import functools
 import hashlib
 import json
@@ -123,7 +140,7 @@ import warnings
 import numpy as np
 import torch
 
-from scs_tpu_torch import Settings, Workspace, accel
+from scs_tpu_torch import Settings, Workspace, accel, demo_sparse
 from scs_tpu_torch.cones import box as box_cone
 from scs_tpu_torch.cones import exp as exp_cone
 from scs_tpu_torch.cones import graphs, project, psd, segments, soc, spectral
@@ -134,7 +151,7 @@ from scs_tpu_torch.models import gen_planted
 from scs_tpu_torch.models import mixed_cones, psd_cones, spectral_cones
 from scs_tpu_torch.types import ConeData
 from scs_tpu_torch.ops import (_build, dsmatmul, dsmatvec, logdet, ozaki,
-                               roofline, sumlargest)
+                               roofline, sparse, sumlargest)
 from scs_tpu_torch.parallel import (BatchWorkspace,
                                     make_chunked_batch_solver,
                                     make_solver_parts)
@@ -1995,6 +2012,333 @@ K4_SHAPES = [((2, 37, 53), (2, 53, 29)),                # the tests' shape
              ((1, 70, 130), (1, 130, 66))]              # k, n not 4 k
 
 
+# ---- phase 14: sparse (blocked-ELL) problems, `demo_sparse` ----
+
+# stages of the cut instance of the direct leg and the repeat check: n =
+# 64 x 128 = 8192, the widths unchanged. The direct backend's dense Gram
+# at the full n = 64000 would take 33 GB, its split and factor 66 GB more.
+SPARSE_CUT_STAGES = 64
+# the operand beyond K2's grid limit: 75000 block-rows of 8 (600000 rows),
+# two tiles of 128 each, a band
+BAND_BLOCK_ROWS = 75000
+
+
+def _scipy_csc(A):
+    """A SparseA (any device) as a float64 scipy CSC matrix on the host."""
+    import scipy.sparse as sp
+    colptr, rows, vals = sparse.sparse_to_csc(A)
+    return sp.csc_matrix((vals, rows, colptr), shape=A.shape)
+
+
+def _csr_on_card(M):
+    """A scipy matrix as a float64 torch CSR tensor on the card (the
+    library call's operand, timed only)."""
+    M = M.tocsr()
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(M.indptr, device="cuda"),
+        torch.as_tensor(M.indices, device="cuda"),
+        torch.as_tensor(M.data, device="cuda"), M.shape,
+        check_invariants=True)
+
+
+def _k2_bound(ds) -> tuple:
+    """K2's least time on a blocked-ELL pair: the split's 8 bytes a stored
+    element, the gathered x and y (8 bytes an entry) at 3.35 TB/s, or 3
+    float64 operations a stored element (the add of hi and lo, then an
+    FMA) at 34 TFLOP/s; (ms, "bytes" or "operations")."""
+    nbr, bm, K = ds.hi.shape
+    nbytes = 8 * nbr * bm * K + 8 * nbr * K + 8 * nbr * bm
+    flops = 3 * nbr * bm * K
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def sparse_kernel_case(label: str, S, M, seed: int) -> dict:
+    """K2 on a sparse operand's tiles (and K1 on its dense tails) against
+    the plain versions on the card and against M @ x, M the same matrix in
+    float64 scipy CSC/CSR on the host, both within 1e-13 (1 + max |A||x|);
+    times (device, median of REPS L2-flushed calls): K2 alone on the
+    gathered x, the gather, K2's plain version, the whole apply
+    (`ds_sparse_matvec`: gather, K2, the tails' K1), the dense tails' K1,
+    and torch.mv on a float64 CSR tensor of the matrix."""
+    ds = sparse.ds_split_sparse(S)
+    m, n = S.shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, generator=gen, dtype=torch.float64, device="cuda")
+    xh = x.cpu().numpy()
+    before = (dsmatvec.launches, dsmatvec.batched_launches)
+    y = sparse.ds_sparse_matvec(ds, x)
+    torch.cuda.synchronize()
+    k1 = dsmatvec.launches - before[0]
+    k2 = dsmatvec.batched_launches - before[1]
+    ref = sparse.ds_sparse_matvec(ds, x, plain=True)
+    want = M @ xh
+    absax = float((abs(M) @ np.abs(xh)).max())
+    tol = 1e-13 * (1.0 + absax)
+    err = float((y - ref).abs().max())
+    err_scipy = float(np.abs(y.cpu().numpy() - want).max())
+    n_tails = int(ds.rows_split is not None) + int(ds.cols_split is not None)
+    check(k2 == 1 and k1 == n_tails, f"{label}: {k2} K2 and {k1} K1 "
+          f"launches for one apply with {n_tails} dense tails")
+    check(math.isfinite(err) and err <= tol, f"{label}: max|kernel - plain| "
+          f"= {err:.3e} > {tol:.3e}")
+    check(err_scipy <= tol, f"{label}: max|kernel - scipy CSR| = "
+          f"{err_scipy:.3e} > {tol:.3e}")
+    split = dsmatvec.DsSplit(ds.ell.hi, ds.ell.lo)
+    xg = sparse._gather_x(ds.ell, x)
+    nbr, bm, K = ds.ell.hi.shape
+    cfg = dsmatvec.launch_config(nbr, bm, K, K, bm * K, K, (
+        ds.ell.hi.data_ptr(), ds.ell.lo.data_ptr(), xg.data_ptr()), 8)
+    bound, by = _k2_bound(ds.ell)
+    out = {
+        "label": label, "shape": [nbr, bm, K], "mn": [m, n],
+        "max_abs_err": max(err, err_scipy), "err_plain": err,
+        "err_scipy": err_scipy, "tol": tol, "config": cfg._asdict(),
+        "ms": median_ms(lambda: dsmatvec.ds_matvec_batched(split, xg)),
+        "gather_ms": median_ms(lambda: sparse._gather_x(ds.ell, x)),
+        "plain_ms": median_ms(
+            lambda: dsmatvec.ds_matvec_batched_plain(split, xg)),
+        "apply_ms": median_ms(lambda: sparse.ds_sparse_matvec(ds, x)),
+        "bound_ms": bound, "bound_by": by, "tails_ms": [],
+    }
+    for tail in (ds.rows_split, ds.cols_split):
+        if tail is not None:
+            v = x if tail is ds.rows_split else x.index_select(
+                0, ds.cols_index)
+            out["tails_ms"].append(
+                [list(tail.hi.shape),
+                 median_ms(lambda: dsmatvec.ds_matvec(tail, v))])
+    try:
+        csr = _csr_on_card(M)
+        out["library_ms"] = median_ms(lambda: torch.mv(csr, x))
+    except RuntimeError as e:          # no CSR product in this build
+        out["library_ms"] = None
+        print(f"{label}: torch.mv on a float64 CSR tensor failed: {e}")
+    print(f"sparse K2 {label} ({m} x {n}, tiles {nbr}x{bm}x{K}, launch "
+          f"config {cfg._asdict()}): max|kernel - plain| {err:.3e}, "
+          f"max|kernel - scipy| {err_scipy:.3e} (tol {tol:.3e}); K2 "
+          f"{out['ms']:.4f} ms, bound {bound:.4f} ms ({by}), "
+          f"{100 * bound / out['ms']:.0f}% of bound, gather "
+          f"{out['gather_ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+          f"whole apply {out['apply_ms']:.4f} ms, tails K1 "
+          f"{out['tails_ms']}, torch.mv (float64 CSR) "
+          f"{out['library_ms']} ms")
+    return out
+
+
+def k2_beyond_grid_case(seed: int) -> dict:
+    """K2 on a banded operand of BAND_BLOCK_ROWS block-rows (more than
+    gridDim.z's 65535: the wrapper launches in chunks) against its plain
+    version, within 1e-13 (1 + max |A||x|)."""
+    nbr, bm, bn, kmax = BAND_BLOCK_ROWS, 8, 128, 2
+    m = n = nbr * bm
+    ncb = -(-n // bn)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    data = torch.randn(nbr, bm, kmax * bn, generator=gen,
+                       dtype=torch.float64, device="cuda")
+    c = torch.clamp(torch.arange(nbr, device="cuda") * ncb // nbr,
+                    max=ncb - 2)
+    idx = torch.stack([c, c + 1], 1).to(torch.int32)
+    ds = sparse.ds_split_ell(sparse.BlockedEll(data, idx, m, n, bm, bn,
+                                               kmax))
+    del data
+    x = torch.randn(n, generator=gen, dtype=torch.float64, device="cuda")
+    before = dsmatvec.batched_launches
+    y = sparse.ds_ell_matvec(ds, x)
+    torch.cuda.synchronize()
+    launches = dsmatvec.batched_launches - before
+    ref = sparse.ds_ell_matvec(ds, x, plain=True)
+    A64 = ds.hi.double() + ds.lo.double()
+    absax = float(torch.bmm(A64.abs(), sparse._gather_x(
+        ds, x.abs()).unsqueeze(-1)).max())
+    del A64
+    err = float((y - ref).abs().max())
+    tol = 1e-13 * (1.0 + absax)
+    print(f"sparse K2 band beyond the grid ({m} rows, {nbr} block-rows, "
+          f"{ds.hi.numel() * 8 / 1e9:.2f} GB of split): {launches} launches "
+          f"(chunks {dsmatvec.batch_chunks(nbr)}), max|kernel - plain| "
+          f"{err:.3e} (tol {tol:.3e})")
+    check(launches == len(dsmatvec.batch_chunks(nbr)) == 2,
+          f"band beyond the grid: {launches} K2 launches, not 2 chunks")
+    check(math.isfinite(err) and err <= tol, f"band beyond the grid: "
+          f"max|kernel - plain| = {err:.3e} > {tol:.3e}")
+    return {"max_abs_err": err, "launches": launches}
+
+
+def tails_operand(m: int, n: int, seed: int):
+    """The tails fixture of tests/test_sparse.py at a mid size: random
+    sparse entries and two dense rows and two dense columns, extracted as
+    tails; (SparseA on the card, scipy CSC)."""
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    A = sp.random(m, n, density=0.01, random_state=rng,
+                  data_rvs=rng.randn).tolil()
+    for r in (3, 41):
+        A[r, :] = rng.randn(n)
+    for c in (0, 17):
+        A[:, c] = rng.randn(m, 1)
+    A = A.tocsc()
+    return sparse.sparse_from_scipy(A, dense_rows=(3, 41),
+                                    dense_cols=(0, 17), device="cuda"), A
+
+
+def sparse_termination_failures(A, b, c, sol, stg) -> list:
+    """SCS's termination test (as `termination_failures`) recomputed in
+    float64 from the original sparse A, b, c and the returned x, y, s;
+    the names of the tests that fail."""
+    x, y, s = (torch.as_tensor(v, device="cuda") for v in (sol.x, sol.y,
+                                                          sol.s))
+    ax, aty = A @ x, A.T @ y
+    ctx, bty = float(c @ x), float(b @ y)
+
+    def inf(t):
+        return float(t.abs().max())
+
+    tests = {"res_pri": (inf(ax + s - b), max(inf(b), inf(s), inf(ax))),
+             "res_dual": (inf(aty + c), max(inf(c), inf(aty))),
+             "gap": (abs(ctx + bty), max(abs(ctx), abs(bty)))}
+    return [k for k, (v, scl) in tests.items()
+            if not v <= 1.01 * (stg.eps_abs + stg.eps_rel * scl)]
+
+
+def sparse_solve(prob, spec, opt: float, label: str, stg) -> dict:
+    """One sparse problem through Workspace on the card, the counts set to
+    0 just before: status, iterations, CG iterations, setup and solve ms,
+    K2 and K1 launches, host reads; gated on status `solved`, SCS's
+    termination test recomputed in float64 and the planted optimum within
+    1e-3 (1 + |opt|)."""
+    torch.cuda.synchronize()
+    dsmatvec.launches = 0
+    dsmatvec.batched_launches = 0
+    indirect.host_reads = 0
+    indirect.refine_passes = 0
+    ws = Workspace(prob, spec, None, stg)
+    sol, info = ws.solve()
+    torch.cuda.synchronize()
+    out = {"iter": info.iter, "cg": ws.tot_cg_its, "mixed": ws._mixed,
+           "setup_ms": info.setup_time, "solve_ms": info.solve_time,
+           "k2": dsmatvec.batched_launches, "k1": dsmatvec.launches,
+           "reads": indirect.host_reads, "passes": indirect.refine_passes,
+           "status": info.status, "pobj": info.pobj,
+           "digest": _digest(sol.x, sol.y, sol.s)}
+    it = max(info.iter, 1)
+    err = abs(info.pobj - opt) / (1 + abs(opt))
+    print(f"{label}: {info.status}, {info.iter} iterations, {ws.tot_cg_its} "
+          f"CG iterations ({ws.tot_cg_its / it:.1f} per iteration), setup "
+          f"{info.setup_time:.1f} ms, solve {info.solve_time:.1f} ms, "
+          f"{info.solve_time / it:.3f} ms/iteration, K2 launches {out['k2']} "
+          f"({out['k2'] / it:.2f} per iteration), K1 launches {out['k1']}, "
+          f"host reads {out['reads']} ({out['reads'] / it:.2f} per "
+          f"iteration), refinement passes {out['passes']}, pobj "
+          f"{info.pobj!r} (planted {opt!r}, rel err {err:.2e}), peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(info.status == "solved", f"{label}: status {info.status}")
+    check(err <= 1e-3, f"{label}: objective error {err:.2e}")
+    A = prob.A.to("cuda")
+    fails = sparse_termination_failures(A, prob.b.cuda(), prob.c.cuda(),
+                                        sol, stg)
+    check(not fails, f"{label}: fails SCS's {fails} test recomputed from "
+          f"the original data")
+    return out
+
+
+def _on_card(prob):
+    return dataclasses.replace(prob, A=prob.A.to("cuda"), b=prob.b.cuda(),
+                               c=prob.c.cuda())
+
+
+def sparse_phase(card: str, stages: int = 500) -> dict:
+    """Phase 14 (see the module docstring); `stages` of the full instance
+    (tools/torch_sparse_phase.py may take fewer)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    prob, spec, opt, meta = demo_sparse.build_problem(K=stages)
+    print(f"demo_sparse full size: A {meta['m']} x {meta['n']}, nnz "
+          f"{meta['nnz']}, stored {meta['stored_bytes'] / 1e9:.3f} GB (dense "
+          f"{meta['dense_bytes'] / 1e9:.1f} GB), tiles A "
+          f"{tuple(prob.A.fwd.data.shape)} A' "
+          f"{tuple(prob.A.bwd.data.shape)}, host build "
+          f"{time.perf_counter() - t0:.1f} s (tiles {meta['build_s']:.1f} s)")
+    prob = _on_card(prob)
+    M = _scipy_csc(prob.A)
+    rows = [sparse_kernel_case("demo A", prob.A, M, 400),
+            sparse_kernel_case("demo A'", prob.A.T, M.T, 401)]
+    tails, Mt = tails_operand(4000, 3000, 402)
+    rows.append(sparse_kernel_case("tails fixture", tails, Mt, 403))
+    band = k2_beyond_grid_case(404)
+    del M, Mt, tails
+    print(f"phase 14 kernel rows done at {time.perf_counter() - t0:.1f} s")
+
+    stg = demo_sparse.SETTINGS
+    full = {"mixed": sparse_solve(prob, spec, opt, "demo_sparse full size "
+                                  "indirect mixed", stg),
+            "pure f64": sparse_solve(prob, spec, opt, "demo_sparse full "
+                                     "size indirect pure f64",
+                                     dataclasses.replace(
+                                         stg, mixed_precision=False))}
+    mx = full["mixed"]
+    check(mx["mixed"] and mx["k2"] >= 2 * mx["iter"], f"demo_sparse mixed: "
+          f"not mixed, or {mx['k2']} K2 launches < 2 x {mx['iter']}")
+    check(full["pure f64"]["k2"] == full["pure f64"]["k1"] == 0,
+          "demo_sparse pure f64 launched K1 or K2")
+    print(f"phase 14 full-size solves done at {time.perf_counter() - t0:.1f}"
+          f" s")
+
+    # the cut instance: the direct backend sparse against dense, and the
+    # indirect pure solve twice
+    cprob, cspec, copt, cmeta = demo_sparse.build_problem(
+        K=SPARSE_CUT_STAGES)
+    cprob = _on_card(cprob)
+    dense = dataclasses.replace(cprob, A=cprob.A.todense())
+    cut = {}
+    for mode, mixed in (("pure f64", False), ("mixed", True)):
+        dstg = Settings(linsys="direct", mixed_precision=mixed,
+                        eps_abs=1e-4, eps_rel=1e-4, max_iters=20_000)
+        sp_run = sparse_solve(cprob, cspec, copt, f"demo_sparse K="
+                              f"{SPARSE_CUT_STAGES} sparse direct {mode}",
+                              dstg)
+        de_run = sparse_solve(dense, cspec, copt, f"demo_sparse K="
+                              f"{SPARSE_CUT_STAGES} dense direct {mode}",
+                              dstg)
+        agree = abs(sp_run["pobj"] - de_run["pobj"]) / (
+            1 + abs(de_run["pobj"]))
+        print(f"demo_sparse K={SPARSE_CUT_STAGES} direct {mode}: sparse "
+              f"{sp_run['iter']} against dense {de_run['iter']} iterations, "
+              f"pobj rel diff {agree:.3e}")
+        check(agree <= 1e-5, f"direct {mode}: sparse and dense pobj differ "
+              f"by {agree:.2e}")
+        if mixed:
+            check(sp_run["k2"] > 0 and sp_run["k1"] > 0,
+                  f"sparse direct mixed: K2 {sp_run['k2']}, K1 "
+                  f"{sp_run['k1']} launches")
+        cut[mode] = sp_run
+    del dense
+    kcut = ds_matvec_case(cprob.A.shape[1], cprob.A.shape[1], seed=405)
+    print(f"ds_matvec {kcut['shape'][0]}x{kcut['shape'][1]} (the cut "
+          f"instance's K): max_abs_err {kcut['max_abs_err']:.3e} (tol "
+          f"{kcut['tol']:.3e}), kernel {kcut['ms']:.4f} ms, bound "
+          f"{kcut['bound_ms']:.4f} ms ({kcut['bound_by']}), {share(kcut)}, "
+          f"plain {kcut['plain_ms']:.4f} ms, torch.mv {kcut['library_ms']:.4f}"
+          f" ms")
+    reps = [sparse_solve(cprob, cspec, copt, f"demo_sparse K="
+                         f"{SPARSE_CUT_STAGES} indirect pure f64, run {i}",
+                         dataclasses.replace(demo_sparse.SETTINGS,
+                                             mixed_precision=False))
+            for i in (1, 2)]
+    same = (reps[0]["iter"] == reps[1]["iter"]
+            and reps[0]["digest"] == reps[1]["digest"])
+    print(f"demo_sparse K={SPARSE_CUT_STAGES} indirect pure f64 twice: "
+          f"iterations {reps[0]['iter']}, {reps[1]['iter']}; x, y, s "
+          f"bitwise equal {reps[0]['digest'] == reps[1]['digest']}")
+    check(same, "sparse indirect pure f64: two solves differ")
+    print(f"{card}, phase 14 (sparse) {time.perf_counter() - t0:.1f} s, peak"
+          f" device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB")
+    return {"rows": rows, "band": band, "full": full, "cut": cut,
+            "k1_cut": kcut, "prob": prob, "spec": spec}
+
+
+
 def share(c: dict) -> str:
     return (f"{100 * c['bound_ms'] / c['ms']:.0f}% of bound; without the "
             f"spin: kernel {c['ms_no_spin']:.4f} ms, library "
@@ -2388,6 +2732,17 @@ def main() -> int:
 
     done(13)
 
+    # 14. sparse problems (`demo_sparse`, blocked-ELL): K2 on the full
+    # instance's A and A' and on a band beyond the grid's 65535 block-rows,
+    # K2 and K1 on a tails operand, against their plain versions and scipy;
+    # the full instance (100000 x 64000, 25.57M nonzeros) through the
+    # indirect backend mixed (K2 counted) and pure float64; the cut
+    # instance through the direct backend, sparse against dense, and
+    # through the indirect backend twice, bit for bit
+    sparse14 = sparse_phase(card)
+
+    done(14)
+
     # 9. where the time of an iteration goes, mixed and pure, on the large
     # SOCP (100 iterations each unprofiled, in turns, then 25 under the
     # profiler: with 100 this phase took 192 s on an H100, most of it
@@ -2403,6 +2758,12 @@ def main() -> int:
           f"{turns[False][1]:.3f} ms/iteration")
     profile_iterations(big_p, spec, True, 25, "large SOCP mixed")
     profile_batched(head, batch, 25)
+    # phase 14's profile: 25 iterations of the full sparse instance, mixed
+    profile_iterations(types.SimpleNamespace(problem=sparse14["prob"],
+                                             cone_data=None),
+                       sparse14["spec"], True, 25,
+                       "demo_sparse full size indirect mixed",
+                       linsys="indirect")
     anderson_qr_times(1024, 501 + 10, 10)
 
     done(9)
@@ -2482,6 +2843,29 @@ def main() -> int:
         "bound_ms": spec13["sl_kernel"][0]["bound_ms"],
         "bound_by": spec13["sl_kernel"][0]["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "ds_matvec_batched_sparse", "route": "cuda",
+        "source": "scs_tpu_torch/csrc/dsmatvec.cu",
+        "replaces": "scs_tpu/ops/dsmatvec.py:226",
+        "launches": sparse14["full"]["mixed"]["k2"],
+        "max_abs_err": max([r["max_abs_err"] for r in sparse14["rows"]]
+                           + [sparse14["band"]["max_abs_err"]]),
+        "ms": sparse14["rows"][0]["ms"],
+        "plain_ms": sparse14["rows"][0]["plain_ms"],
+        "bound_ms": sparse14["rows"][0]["bound_ms"],
+        "bound_by": sparse14["rows"][0]["bound_by"],
+        "library_ms": sparse14["rows"][0]["library_ms"],
+    }, {
+        "name": "ds_matvec_sparse_direct", "route": "cuda",
+        "source": "scs_tpu_torch/csrc/dsmatvec.cu",
+        "replaces": "scs_tpu/ops/dsmatvec.py:91",
+        "launches": sparse14["cut"]["mixed"]["k1"],
+        "max_abs_err": sparse14["k1_cut"]["max_abs_err"],
+        "ms": sparse14["k1_cut"]["ms"],
+        "plain_ms": sparse14["k1_cut"]["plain_ms"],
+        "bound_ms": sparse14["k1_cut"]["bound_ms"],
+        "bound_by": sparse14["k1_cut"]["bound_by"],
+        "library_ms": sparse14["k1_cut"]["library_ms"],
     }]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

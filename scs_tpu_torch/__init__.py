@@ -15,7 +15,9 @@ nonnegative, box, second-order, PSD, complex PSD, exponential, power, and
 the spectral cones (log-determinant, nuclear-norm, ell1-norm and
 sum-of-k-largest-eigenvalues), through the indirect (Jacobi-preconditioned
 CG, the default) or the direct (Cholesky) linear-system backend, in pure
-and mixed precision.
+and mixed precision. A and P may be dense tensors or sparse operands
+(`ops.sparse.SparseA`, blocked-ELL tiles with dense row and column
+tails, built by `ops.sparse.sparse_from_scipy`), on both backends.
 The double-single matvec that the mixed path runs is a hand-written CUDA
 kernel (`ops/dsmatvec.py`, `csrc/dsmatvec.cu`); so are the double-single
 matmul (`ops/dsmatmul.py`) and the roofline probe's read kernel
@@ -36,11 +38,11 @@ torch.backends.cudnn.allow_tf32 = False
 from . import config  # noqa: E402
 from .api import Workspace, solve  # noqa: E402
 from .types import (ConeData, ConeSpec, Info, Problem,  # noqa: E402
-                    Settings, Solution)
+                    Settings, Solution, problem_from_csc)
 
 __version__ = config.VERSION
 
 __all__ = [
     "Workspace", "solve", "Problem", "ConeSpec", "ConeData", "Settings",
-    "Solution", "Info", "config", "__version__",
+    "Solution", "Info", "config", "__version__", "problem_from_csc",
 ]

@@ -24,6 +24,7 @@ from .cones.box import scale_box_bounds
 from .equilibrate import (equilibrate, identity_scaling, normalize_b_c,
                           normalize_xys, unnormalize_xys)
 from .linsys import Mats, get_backend, prepare_operands, resolve_mixed
+from .ops.sparse import is_sparse, sparse_to_csc
 from .solver import (Iteration, LoopState, ProblemData, Residuals,
                      moreau_repolish, pack_warm_v, populate_residuals,
                      set_diag_r)
@@ -59,6 +60,44 @@ def _not_ported(stg: Settings) -> None:
                 f"item {item})")
 
 
+def _lam_min_host(P) -> float:
+    """Smallest eigenvalue of a large sparse P by float64 ARPACK Lanczos on
+    a host CSC copy (`scs_tpu/api.py:58-80`). Raises ImportError where
+    scipy is missing, RuntimeError (ArpackError) where ARPACK fails."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    n = P.shape[0]
+    colptr, rows, vals = sparse_to_csc(P)
+    Ph = sp.csc_matrix((vals, rows, colptr), shape=(n, n))
+    try:
+        lam = spla.eigsh(Ph, k=1, which="SA", return_eigenvectors=False,
+                         maxiter=10 * n, tol=1e-10)
+    except spla.ArpackNoConvergence as e:
+        if len(e.eigenvalues) == 0:
+            raise
+        lam = e.eigenvalues
+    return float(np.min(lam))
+
+
+def _lam_min_lobpcg(P) -> float:
+    """Smallest eigenvalue of a sparse P by LOBPCG on P's device (the JAX
+    package's fallback where ARPACK fails, `scs_tpu/api.py:300-315`: 8
+    vectors from RandomState(0), 50 iterations). torch.lobpcg takes a
+    tensor, so P goes in as a torch sparse COO tensor of its CSC
+    triplets."""
+    n = P.shape[0]
+    colptr, rows, vals = sparse_to_csc(P)
+    cols = np.repeat(np.arange(n), np.diff(colptr))
+    Pt = torch.sparse_coo_tensor(
+        torch.as_tensor(np.stack([rows, cols])), torch.as_tensor(vals),
+        (n, n), check_invariants=True).to(P.device)
+    X0 = torch.as_tensor(np.random.RandomState(0).randn(n, 8),
+                         device=P.device)
+    theta, _ = torch.lobpcg(Pt, X=X0, niter=50, largest=False)
+    return float(theta.min())
+
+
 class Workspace:
     """Reusable solver workspace (ScsWork analog).
 
@@ -89,8 +128,11 @@ class Workspace:
         self._mixed = resolve_mixed(stg, dev)
 
         def put(t):
-            return None if t is None else torch.as_tensor(
-                t, dtype=dtype, device=dev)
+            if t is None:
+                return None
+            if is_sparse(t):
+                return t.to(dev).astype(dtype)
+            return torch.as_tensor(t, dtype=dtype, device=dev)
 
         A, P = put(problem.A), put(problem.P)
         m, n = A.shape
@@ -161,7 +203,12 @@ class Workspace:
         positive diagonal passes that test, the smallest eigenvalue of
         the normalized P (congruence keeps the inertia) from a float64
         eigvalsh on the solve's device, held to -1e-8 max(1, max|P|): the
-        JAX package's exact (CPU) branch, on either device."""
+        JAX package's exact (CPU) branch, on either device. A sparse P is
+        densified for the eigvalsh up to n = 4096; beyond, its smallest
+        eigenvalue comes from ARPACK on a host CSC copy (`_lam_min_host`,
+        same tolerance), or, where ARPACK fails, from LOBPCG on the
+        device, held to -2e-4 max(1, max|P|) as the JAX package's
+        LOBPCG branch."""
         factor = (self.derived[0] if isinstance(self.derived, tuple)
                   else self.derived)
         if self.stg.linsys == "direct":
@@ -170,10 +217,21 @@ class Workspace:
             bad = bool(((factor <= 0.0) | ~torch.isfinite(factor)).any())
             P = self.data.P
             if not bad and P is not None:
-                P64 = P.to(torch.float64)
-                lam_min = float(torch.linalg.eigvalsh(P64).min())
-                scale_ref = max(1.0, float(P64.abs().max()))
-                bad = lam_min < -1e-8 * scale_ref
+                tol = 1e-8
+                if not is_sparse(P):
+                    lam_min = float(torch.linalg.eigvalsh(
+                        P.to(torch.float64)).min())
+                elif P.shape[0] <= 4096:
+                    lam_min = float(torch.linalg.eigvalsh(
+                        P.todense().to(torch.float64)).min())
+                else:
+                    try:
+                        lam_min = _lam_min_host(P)
+                    except (ImportError, RuntimeError):   # ARPACK failed
+                        lam_min, tol = _lam_min_lobpcg(P), 2e-4
+                scale_ref = max(1.0, float(P.abs_max() if is_sparse(P)
+                                           else P.abs().max()))
+                bad = lam_min < -tol * scale_ref
         if bad:
             raise ValidationError(
                 "non-convexity detected: the KKT Schur complement is not "

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops.sparse import BlockedEll, SparseA
 from .types import ConeData, ConeSpec, Problem, Settings, Solution
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
@@ -25,6 +26,26 @@ def _tensor(a, dtype=torch.float64):
 def problem_from_numpy(A, b, c, P=None, dtype=torch.float64) -> Problem:
     return Problem(A=_tensor(A, dtype), b=_tensor(b, dtype),
                    c=_tensor(c, dtype), P=_tensor(P, dtype))
+
+
+def _ell_from_numpy(d, dtype) -> BlockedEll:
+    return BlockedEll(data=_tensor(d["data"], dtype),
+                      idx=torch.tensor(np.asarray(d["idx"]), dtype=torch.int32),
+                      **{k: int(d[k]) for k in ("m", "n", "bm", "bn", "kmax")})
+
+
+def sparse_from_numpy(fwd, bwd, rows_val=None, cols_val=None, rows_idx=(),
+                      cols_idx=(), dtype=torch.float64) -> SparseA:
+    """The JAX package's SparseA as this package's: `fwd` and `bwd` map
+    the BlockedEll fields (data, idx, m, n, bm, bn, kmax) to arrays and
+    ints, so `sparse_from_numpy(**dataclasses.asdict(S))` converts a JAX
+    SparseA S; the tails as numpy arrays or None."""
+    return SparseA(fwd=_ell_from_numpy(fwd, dtype),
+                   bwd=_ell_from_numpy(bwd, dtype),
+                   rows_val=_tensor(rows_val, dtype),
+                   cols_val=_tensor(cols_val, dtype),
+                   rows_idx=tuple(int(i) for i in rows_idx),
+                   cols_idx=tuple(int(i) for i in cols_idx))
 
 
 def spec_from_dict(d: dict) -> ConeSpec:

@@ -9,6 +9,11 @@ for the sums of the L2 pass, segment sums in a fixed order
 (`cones.segments.segment_sum`), so that D repeats bit for bit from run to
 run on the card.
 
+A and P may each be a sparse operand (`ops.sparse.SparseA`): its row and
+column norms and its scaling use the structure-aware operations, never
+the dense matrix (scs_tpu/equilibrate.py:61-140), and each pass makes a
+new operand.
+
 The `*_batched` functions equilibrate and normalize a stack of B problems
 of one shape (leading batch axis); each problem's D and E are those of
 `equilibrate` applied to it alone. The Scaling of a batch holds D (B, m),
@@ -25,6 +30,7 @@ import torch
 from . import config
 from .cones.project import cone_boundaries
 from .cones.segments import segment_sum
+from .ops.sparse import is_sparse
 from .types import ConeSpec
 
 
@@ -73,7 +79,31 @@ def _segment_amax(vals, ids, nseg):
     return out.scatter_reduce(0, ids, vals, "amax", include_self=False)
 
 
-def equilibrate(A: torch.Tensor, P, spec: ConeSpec):
+# dense operands reduce over the full tensor, a SparseA over its stored
+# parts
+
+
+def _row_abs_max(M):
+    return M.row_abs_max() if is_sparse(M) else torch.amax(torch.abs(M), 1)
+
+
+def _col_abs_max(M):
+    return M.col_abs_max() if is_sparse(M) else torch.amax(torch.abs(M), 0)
+
+
+def _row_sumsq(M):
+    return M.row_sumsq() if is_sparse(M) else torch.sum(M * M, dim=1)
+
+
+def _col_sumsq(M):
+    return M.col_sumsq() if is_sparse(M) else torch.sum(M * M, dim=0)
+
+
+def _scale(M, D, E):
+    return M.scale(D, E) if is_sparse(M) else D[:, None] * M * E[None, :]
+
+
+def equilibrate(A, P, spec: ConeSpec):
     """Rescale A -> DAE, P -> EPE in the Ruiz/L2 sense. Returns (A, P, Scaling).
 
     Each pass makes new tensors; the caller's A and P are left as they were.
@@ -85,31 +115,31 @@ def equilibrate(A: torch.Tensor, P, spec: ConeSpec):
 
     for _ in range(config.NUM_RUIZ_PASSES):
         # D: inf-norm of rows of A, aggregated (inf-norm) within each cone
-        Dt = torch.amax(torch.abs(A), dim=1)
+        Dt = _row_abs_max(A)
         Dt = _segment_amax(Dt, ids, nseg)[ids]
         Dt = 1.0 / torch.sqrt(_apply_limit(Dt))
         # E: inf-norm of cols of [P; A]
-        Et = torch.amax(torch.abs(A), dim=0)
+        Et = _col_abs_max(A)
         if P is not None:
-            Et = torch.maximum(Et, torch.amax(torch.abs(P), dim=0))
+            Et = torch.maximum(Et, _col_abs_max(P))
         Et = 1.0 / torch.sqrt(_apply_limit(Et))
-        A = Dt[:, None] * A * Et[None, :]
+        A = _scale(A, Dt, Et)
         if P is not None:
-            P = Et[:, None] * P * Et[None, :]
+            P = _scale(P, Et, Et)
         D = D * Dt
         E = E * Et
 
     for _ in range(config.NUM_L2_PASSES):
-        Dt = torch.sqrt(torch.sum(A * A, dim=1))
+        Dt = torch.sqrt(_row_sumsq(A))
         Dt = _segment_mean(Dt, spec, ids)       # cone-wise mean
         Dt = 1.0 / torch.sqrt(_apply_limit(Dt))
-        Et = torch.sum(A * A, dim=0)
+        Et = _col_sumsq(A)
         if P is not None:
-            Et = Et + torch.sum(P * P, dim=0)
+            Et = Et + _col_sumsq(P)
         Et = 1.0 / torch.sqrt(_apply_limit(torch.sqrt(Et)))
-        A = Dt[:, None] * A * Et[None, :]
+        A = _scale(A, Dt, Et)
         if P is not None:
-            P = Et[:, None] * P * Et[None, :]
+            P = _scale(P, Et, Et)
         D = D * Dt
         E = E * Et
 

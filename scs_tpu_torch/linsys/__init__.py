@@ -31,11 +31,13 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from ..ops import sparse
 from . import direct, indirect
 
 
 class Mats(NamedTuple):
-    """Loop-invariant linear-system operands."""
+    """Loop-invariant linear-system operands (A and P dense tensors or, for
+    one problem, `ops.sparse.SparseA`s)."""
 
     A: torch.Tensor
     P: Optional[torch.Tensor]
@@ -102,11 +104,19 @@ def resolve_fast_f32(stg, mixed: bool, ds: bool) -> bool:
 
 def _shadows(backend, A, P, mixed: bool):
     """(A32, P32): the float32 shadows the mixed indirect CG runs on (the
-    JAX package builds them for both backends; only indirect reads them)."""
+    JAX package builds them for both backends; only indirect reads them).
+    A SparseA's shadow is the SparseA of its float32 tiles and tails."""
     if not (mixed and backend is indirect):
         return None, None
-    f32 = torch.float32
-    return A.to(f32), (None if P is None else P.to(f32))
+
+    def f32(M):
+        if M is None:
+            return None
+        if sparse.is_sparse(M):
+            return M.astype(torch.float32)
+        return M.to(torch.float32)
+
+    return f32(A), f32(P)
 
 
 def prepare_operands(backend, A, P, n_zero: int, mixed: bool,

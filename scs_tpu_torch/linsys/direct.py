@@ -14,6 +14,12 @@ matrix-vector product plus REFINE_PASSES float64 refinement passes. The
 refinement's K x and the surrounding A' z and A x run on the double-single
 kernel (`ops.dsmatvec`, K1) when the cache holds the operand splits.
 
+A sparse A (`ops.sparse.SparseA`, one problem) forms K from its tiles
+(`ops.sparse.sparse_gram`, a fixed-order sum; the n x n factor is dense
+whatever A's storage); a sparse P is densified once for G; the mixed
+path's A x and A' z run K2 on the tiles and K1 on the dense tails
+(`ops.sparse.ds_sparse_matvec`), K x K1 on K's split.
+
 The `*_batched` functions do the same for a stack of B problems of one
 shape, with a leading batch axis on every operand (the JAX package's
 vmapped precompute/derive/solve): batched products, batched Cholesky
@@ -38,9 +44,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops import dsmatvec
+from ..ops import dsmatvec, sparse
 from ..ops.dsmatvec import DsSplit
-from .matvec import bmv
+from .matvec import bmv, ds_mv
 
 METHOD_NAME = "dense-direct-schur-cholesky"
 
@@ -56,13 +62,28 @@ class DirectCache(NamedTuple):
     ds_fwd: Optional[DsSplit]     # (hi, lo) split of A
     ds_bwd: Optional[DsSplit]     # (hi, lo) split of A'
     ds_K: Optional[DsSplit]       # (hi, lo) split of K
+    P_dense: Optional[torch.Tensor] = None   # a sparse P, densified
 
 
 def precompute(A, P, n_zero: int, ds: bool = False) -> DirectCache:
     """K = A'A + 999 A_z'A_z, plus the double-single splits of A, A' and K
     when `ds` is set (the mixed path on the card; a test may set it on the
-    CPU to drive the solver through the kernel's plain version)."""
-    del P
+    CPU to drive the solver through the kernel's plain version). A
+    SparseA's K is A' W A from its tiles, W = 1000 on the zero-cone rows
+    (scs_tpu/linsys/direct.py:64-92); a sparse P is densified here."""
+    sparse.require_operand(A)
+    P_dense = P.todense() if sparse.is_sparse(P) else None
+    if sparse.is_sparse(A):
+        w = None
+        if n_zero:
+            rows = torch.arange(A.shape[0], device=A.device)
+            w = torch.where(rows < n_zero, 1000.0, 1.0).to(A.dtype)
+        K = sparse.sparse_gram(A, w)
+        if not ds:
+            return DirectCache(K, None, None, None, P_dense)
+        return DirectCache(K, sparse.ds_split_sparse(A),
+                           sparse.ds_split_sparse(A.T),
+                           dsmatvec.split_operand(K), P_dense)
     K = A.T @ A
     if n_zero:
         Az = A[:n_zero]
@@ -77,8 +98,9 @@ def precompute(A, P, n_zero: int, ds: bool = False) -> DirectCache:
 def _gram(mats, diag_r, scale):
     n = mats.A.shape[1]
     G = scale * mats.cache.K + torch.diag(diag_r[:n])
-    if mats.P is not None:
-        G = G + mats.P
+    P = mats.P if mats.cache.P_dense is None else mats.cache.P_dense
+    if P is not None:
+        G = G + P
     return G
 
 
@@ -96,13 +118,13 @@ def _gram_matvec(mats, diag_r, scale, x):
 
 def _A_matvec(mats, x):
     if mats.cache.ds_fwd is not None:
-        return dsmatvec.ds_matvec(mats.cache.ds_fwd, x)
+        return ds_mv(mats.cache.ds_fwd, x)
     return mats.A @ x
 
 
 def _At_matvec(mats, z):
     if mats.cache.ds_bwd is not None:
-        return dsmatvec.ds_matvec(mats.cache.ds_bwd, z)
+        return ds_mv(mats.cache.ds_bwd, z)
     return mats.A.T @ z
 
 

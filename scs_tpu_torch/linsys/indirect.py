@@ -23,6 +23,11 @@ kernels (K1 for one problem, K2 for a batch) and solves again for the
 correction, at most MAX_REFINE times. The right-hand side's A' z and the
 y-recovery's A x take the same kernels.
 
+A sparse A or P (`ops.sparse.SparseA`, one problem) takes the same
+path: the diagonal from its structure-aware column sums, its products
+through `matvec.mv`, its double-single applies through K2 (and K1 for its
+dense tails), `ops.sparse.ds_sparse_matvec`.
+
 Every function takes one problem (vectors (n,), 0-d scalars) or a batch
 (a leading axis B on every operand): the arithmetic is elementwise or a
 reduction over the last axis, and the products dispatch on the operand's
@@ -58,9 +63,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import config
-from ..ops import dsmatvec
+from ..ops import dsmatvec, sparse
 from ..ops.dsmatvec import DsSplit
-from .matvec import ds_mv, mv
+from .matvec import ds_mv, mT, mv
 
 METHOD_NAME = "dense-indirect-jacobi-pcg"
 
@@ -85,20 +90,27 @@ class IndirectCache(NamedTuple):
     """Loop-invariant operand cache (ProblemData.lin_cache)."""
 
     diagK: torch.Tensor           # scale-free preconditioner diagonal
-    ds_fwd: Optional[DsSplit]     # (hi, lo) split of A
+    ds_fwd: Optional[DsSplit]     # (hi, lo) split of A (DsSparse if sparse)
     ds_bwd: Optional[DsSplit]     # (hi, lo) split of A'
 
 
 def precompute(A, P, n_zero: int, ds: bool = False) -> IndirectCache:
-    """diag(K) = diag(A'A + 999 A_z'A_z) of A (m, n) or of each problem of
-    a stack (B, m, n), plus the double-single splits of A and A' when `ds`
-    is set (the mixed path on the card; a test may set it on the CPU to
-    drive the solver through the kernels' plain versions)."""
+    """diag(K) = diag(A'A + 999 A_z'A_z) of A (m, n), of a SparseA or of
+    each problem of a stack (B, m, n), plus the double-single splits of A
+    and A' when `ds` is set (the mixed path on the card; a test may set it
+    on the CPU to drive the solver through the kernels' plain versions).
+    A SparseA's diagonal is its column sums with the zero-cone rows
+    weighted 1000 (scs_tpu/linsys/indirect.py:56-72)."""
     del P
-    if A.layout != torch.strided:
-        raise NotImplementedError(
-            "a sparse A on the indirect backend is not ported yet (ROADMAP "
-            "queue 1, item 12)")
+    sparse.require_operand(A)
+    if sparse.is_sparse(A):
+        rows = torch.arange(A.shape[0], device=A.device)
+        w = torch.where(rows < n_zero, 1000.0, 1.0).to(A.dtype)
+        d = A.col_sumsq(w)
+        if not ds:
+            return IndirectCache(d, None, None)
+        return IndirectCache(d, sparse.ds_split_sparse(A),
+                             sparse.ds_split_sparse(A.T))
     d = torch.sum(A * A, dim=-2)
     if n_zero:
         Az = A[..., :n_zero, :]
@@ -116,7 +128,8 @@ def derive(mats, diag_r, scale, mixed: bool = False):
     n = mats.A.shape[-1]
     d = diag_r[..., :n] + scale[..., None] * mats.cache.diagK
     if mats.P is not None:
-        d = d + torch.diagonal(mats.P, dim1=-2, dim2=-1)
+        d = d + (mats.P.diagonal() if sparse.is_sparse(mats.P)
+                 else torch.diagonal(mats.P, dim1=-2, dim2=-1))
     M = 1.0 / d
     if not mixed:
         return M
@@ -150,7 +163,7 @@ def _mat_vec(A, P, diag_r, x):
     """(R_x + P + A' R_y^{-1} A) x in the operands' own precision."""
     m, n = A.shape[-2:]
     z = mv(A, x) / diag_r[..., n:n + m]
-    y = mv(A.transpose(-2, -1), z) + diag_r[..., :n] * x
+    y = mv(mT(A), z) + diag_r[..., :n] * x
     if P is not None:
         y = y + mv(P, x)
     return y
@@ -163,7 +176,7 @@ def _A_matvec(mats, x):
 
 def _At_matvec(mats, z):
     ds = mats.cache.ds_bwd
-    return mv(mats.A.transpose(-2, -1), z) if ds is None else ds_mv(ds, z)
+    return mv(mT(mats.A), z) if ds is None else ds_mv(ds, z)
 
 
 def _schur_matvec(mats, diag_r, x):
@@ -246,13 +259,23 @@ class _CGGraph:
 _graphs: "OrderedDict[tuple, _CGGraph]" = OrderedDict()
 
 
+def _tensors(*ops) -> list:
+    """The operands as the tensors a graph reads: a SparseA contributes
+    every tensor of both directions and its tails (a key that missed one
+    would replay a graph on a freed operand)."""
+    out = []
+    for t in ops:
+        out.extend(t.tensors() if sparse.is_sparse(t) else (t,))
+    return out
+
+
 def _graph(ops, M, tol, state) -> _CGGraph:
     """The cached graph for these operands (captured on a miss), loaded
     with `tol` and `state`."""
     key = tuple(None if t is None else
                 (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                for t in (*ops, M)) + (tuple(tol.shape), state[0].shape,
-                                       state[0].dtype, READ_EVERY)
+                for t in _tensors(*ops, M)) + (
+        tuple(tol.shape), state[0].shape, state[0].dtype, READ_EVERY)
     g = _graphs.pop(key, None)
     if g is None:
         g = _CGGraph(ops, M, tol, state)
@@ -372,7 +395,7 @@ def solve(mats, diag_r, derived, rhs, warm_start=None, tol=None,
                                     tol, 10 * n, run)
         y = (_A_matvec(mats, x) - ry) / r_y
     else:
-        b = rx + mv(A.transpose(-2, -1), ry / r_y)
+        b = rx + mv(mT(A), ry / r_y)
         x, its = _pcg((A, P, diag_r), derived, warm_start, b, 10 * n, tol,
                       active=run)
         y = (mv(A, x) - ry) / r_y

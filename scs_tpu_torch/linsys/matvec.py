@@ -1,13 +1,14 @@
 """Matrix-vector products shared by the linear-system backends and the
-batched iteration: one problem (M (p, q), x (q,)) or a batch (M (B, p, q),
-x (B, q)), through the double-single kernels where the operand's split is
-given."""
+batched iteration: one problem (M (p, q) or a sparse operand
+`ops.sparse.SparseA`, x (q,)) or a batch (M (B, p, q), x (B, q)), through
+the double-single kernels where the operand's split is given."""
 
 from __future__ import annotations
 
 import torch
 
 from ..ops import dsmatvec
+from ..ops import sparse
 
 
 def bmv(M, x):
@@ -16,12 +17,22 @@ def bmv(M, x):
 
 
 def mv(M, x):
-    """M x for one matrix (p, q) or a stack of them (B, p, q)."""
-    return M @ x if M.dim() == 2 else bmv(M, x)
+    """M x for one matrix (p, q), a SparseA or a stack of matrices (B, p,
+    q)."""
+    return M @ x if sparse.is_sparse(M) or M.dim() == 2 else bmv(M, x)
+
+
+def mT(M):
+    """The transpose of one matrix, a SparseA or each of a stack."""
+    return M.T if sparse.is_sparse(M) else M.transpose(-2, -1)
 
 
 def ds_mv(split, x):
-    """(hi + lo) x through K1 (one problem) or K2 (a batch)."""
+    """(hi + lo) x through K1 (one problem) or K2 (a batch); a sparse
+    operand's split (`ops.sparse.DsSparse`) through K2 and K1 for its
+    tails."""
+    if isinstance(split, sparse.DsSparse):
+        return sparse.ds_sparse_matvec(split, x)
     if split.hi.dim() == 2:
         return dsmatvec.ds_matvec(split, x)
     return dsmatvec.ds_matvec_batched(split, x)

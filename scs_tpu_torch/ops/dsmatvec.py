@@ -42,7 +42,8 @@ batched_launches = 0
 pair_launches = 0
 captured = 0
 
-# gridDim.z, the batch index of a launch, is at most 65535
+# gridDim.z, the batch index of a launch, is at most 65535: a larger
+# batch launches in chunks of at most this many problems (`batch_chunks`)
 MAX_BATCH = 65535
 
 
@@ -258,8 +259,8 @@ def ds_matvec_batched(split: DsSplit, x: torch.Tensor) -> torch.Tensor:
     if _batched_device("ds_matvec_batched", x) == "cpu":
         return ds_matvec_batched_plain(split, x)
     y = torch.empty(B, m, dtype=x.dtype, device=x.device)
-    if _launch_batched("ds_matvec_batched", split, x, y, None, B, m, n):
-        batched_launches += 1
+    batched_launches += _launch_batched("ds_matvec_batched", split, x, y,
+                                        None, B, m, n)
     return y
 
 
@@ -291,44 +292,50 @@ def ds_matvec_pair_batched(split: DsSplit, x: torch.Tensor) -> DsSplit:
         return ds_matvec_pair_batched_plain(split, x)
     hi = torch.empty(B, m, dtype=torch.float32, device=x.device)
     lo = torch.empty_like(hi)
-    if _launch_batched("ds_matvec_pair_batched", split, x, hi, lo, B, m, n):
-        pair_launches += 1
+    pair_launches += _launch_batched("ds_matvec_pair_batched", split, x, hi,
+                                     lo, B, m, n)
     return DsSplit(hi, lo)
 
 
+def batch_chunks(B: int) -> list[tuple[int, int]]:
+    """The (start, stop) problem ranges of a batch's launches: at most
+    MAX_BATCH problems each, the grid's z extent."""
+    return [(s, min(s + MAX_BATCH, B)) for s in range(0, B, MAX_BATCH)]
+
+
 def _launch_batched(name: str, split: DsSplit, x: torch.Tensor,
-                    y: torch.Tensor, ylo, B: int, m: int, n: int) -> bool:
+                    y: torch.Tensor, ylo, B: int, m: int, n: int) -> int:
     """Launch the kernel for a batch into y (and ylo, the pair's low
-    words). Returns whether it launched (nothing to do for an empty
-    batch)."""
+    words), one launch per chunk of `batch_chunks(B)`. Returns the number
+    of launches (none for an empty batch)."""
     hi, lo = split
     if hi.stride() != lo.stride() or hi.stride(2) != 1 or x.stride(1) != 1:
         raise ValueError(f"{name}'s kernel takes hi and lo of equal strides "
                          f"with unit column stride, and x with unit stride "
                          f"along n")
-    if B > MAX_BATCH:
-        raise ValueError(f"{name} launches one grid slice per problem, at "
-                         f"most {MAX_BATCH}; got {B}")
     if m == 0 or B == 0:
-        return False
+        return 0
     lib = _lib()
     lda, a_bs, x_bs = hi.stride(1), hi.stride(0), x.stride(0)
     x_f32 = x.dtype == torch.float32
-    cfg = launch_config(B, m, n, lda, a_bs, x_bs,
-                        (hi.data_ptr(), lo.data_ptr(), x.data_ptr()),
-                        x.element_size())
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = lib.scs_ds_matvec(hi.data_ptr(), lo.data_ptr(), x.data_ptr(),
-                                y.data_ptr(),
-                                None if ylo is None else ylo.data_ptr(),
-                                m, n, lda, B, a_bs, x_bs, m, cfg.tpr,
-                                cfg.threads, int(cfg.vec_a), int(cfg.vec_x),
-                                int(x_f32), stream)
-    if err != 0:
-        msg = lib.scs_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-    return True
+    chunks = batch_chunks(B)
+    for s, e in chunks:
+        h, l, xs, ys = hi[s:e], lo[s:e], x[s:e], y[s:e]
+        cfg = launch_config(e - s, m, n, lda, a_bs, x_bs,
+                            (h.data_ptr(), l.data_ptr(), xs.data_ptr()),
+                            x.element_size())
+        with torch.cuda.device(x.device):
+            err = lib.scs_ds_matvec(
+                h.data_ptr(), l.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+                None if ylo is None else ylo[s:e].data_ptr(),
+                m, n, lda, e - s, a_bs, x_bs, m, cfg.tpr, cfg.threads,
+                int(cfg.vec_a), int(cfg.vec_x), int(x_f32), stream)
+        if err != 0:
+            msg = lib.scs_cuda_error_string(err).decode()
+            raise RuntimeError(f"{name} kernel launch failed: {msg} "
+                               f"({err})")
+    return len(chunks)
 
 
 def ds_compose_gram_batched(ds_K: DsSplit, scale: torch.Tensor,

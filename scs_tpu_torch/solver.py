@@ -36,13 +36,14 @@ from . import accel, config
 from .cones.project import proj_dual_cone
 from .equilibrate import Scaling
 from .linsys import Mats, get_backend
-from .ops import dsmatvec
+from .linsys.matvec import ds_mv
 from .types import ConeData, ConeSpec, Settings
 
 
 @dataclasses.dataclass(frozen=True)
 class ProblemData:
-    """Normalized problem data + originals, tensors on the solve's device."""
+    """Normalized problem data + originals, tensors on the solve's device
+    (A and P dense, or `ops.sparse.SparseA`)."""
 
     A: torch.Tensor                 # (m, n) normalized
     P: Optional[torch.Tensor]       # (n, n) normalized or None
@@ -208,12 +209,12 @@ def root_plus(g, p, mu, eta, diag_r, nm: int):
 
 
 def _res_matvec(data: ProblemData, x, transpose: bool):
-    """A x / A' x through the double-single kernel when the cache holds
-    the splits, else in plain float64."""
+    """A x / A' x through the double-single kernels when the cache holds
+    the splits (K1; K2 and K1 for a sparse A), else in plain float64."""
     ds = getattr(data.lin_cache, "ds_bwd" if transpose else "ds_fwd", None)
     if ds is None:
         return (data.A.T @ x) if transpose else (data.A @ x)
-    return dsmatvec.ds_matvec(ds, x)
+    return ds_mv(ds, x)
 
 
 def populate_residuals(data: ProblemData, spec: ConeSpec, u, rsk, it: int,

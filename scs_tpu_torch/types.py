@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from . import config
@@ -23,7 +24,8 @@ class Problem:
     """Quadratic cone program data:  min (1/2)x'Px + c'x  s.t. Ax + s = b, s in K.
 
     ``A`` is (m, n); ``P`` is (n, n) full symmetric, or None for LPs/SOCPs.
-    The tensors may live on any device; the workspace moves them to its own.
+    Either may be a sparse operand (`ops.sparse.SparseA`). The tensors may
+    live on any device; the workspace moves them to its own.
     """
 
     A: torch.Tensor
@@ -38,6 +40,21 @@ class Problem:
     @property
     def n(self) -> int:
         return self.A.shape[1]
+
+
+def problem_from_csc(A_csc, b, c, P_upper_csc=None,
+                     dtype=torch.float64) -> Problem:
+    """A dense Problem from scipy CSC inputs, the reference's data format
+    (`scs_tpu/types.py:46-60`): P_upper_csc holds the upper triangle
+    (include/scs.h:111-114) and is symmetrized here. For a problem kept
+    sparse, pass `ops.sparse.sparse_from_scipy(A_csc)` as A instead."""
+    A = torch.as_tensor(np.asarray(A_csc.todense()), dtype=dtype)
+    P = None
+    if P_upper_csc is not None:
+        Pu = np.asarray(P_upper_csc.todense())
+        P = torch.as_tensor(Pu + Pu.T - np.diag(np.diag(Pu)), dtype=dtype)
+    return Problem(A=A, b=torch.as_tensor(np.asarray(b), dtype=dtype),
+                   c=torch.as_tensor(np.asarray(c), dtype=dtype), P=P)
 
 
 @dataclasses.dataclass(frozen=True)

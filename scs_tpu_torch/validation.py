@@ -9,8 +9,10 @@ from __future__ import annotations
 import math
 import numbers
 
+import numpy as np
 import torch
 
+from .ops.sparse import is_sparse
 from .types import ConeSpec, Problem, Settings
 
 
@@ -20,6 +22,17 @@ class ValidationError(ValueError):
 
 def _all_finite(t: torch.Tensor) -> bool:
     return bool(torch.isfinite(t).all())
+
+
+def _sparse_symmetric(P) -> bool:
+    """A SparseA P is symmetric iff its stored forward and transpose
+    directions agree as operators (both are built from the same triplets),
+    so three random products of P and P' are compared, to 1e-9 (max|P| +
+    1), without densifying (scs_tpu/validation.py:40-54)."""
+    Z = torch.as_tensor(np.random.RandomState(0).randn(P.shape[0], 3),
+                        dtype=P.dtype, device=P.device)
+    tol = 1e-9 * (float(P.abs_max()) + 1.0)
+    return bool(torch.all(torch.abs(P @ Z - P.T @ Z) <= tol))
 
 
 def validate(problem: Problem, spec: ConeSpec, cone_data, stg: Settings) -> None:
@@ -32,17 +45,29 @@ def validate(problem: Problem, spec: ConeSpec, cone_data, stg: Settings) -> None
     if tuple(problem.c.shape) != (n,):
         raise ValidationError(
             f"c must have shape ({n},), got {tuple(problem.c.shape)}")
-    if problem.P is not None:
-        if tuple(problem.P.shape) != (n, n):
+    P = problem.P
+    if P is not None:
+        if tuple(P.shape) != (n, n):
             raise ValidationError(
-                f"P must have shape ({n}, {n}), got {tuple(problem.P.shape)}")
-        if not torch.equal(problem.P, problem.P.T):
-            raise ValidationError(
-                "P must be symmetric (pass the full matrix; "
-                "the reference takes upper-triangular CSC)")
-        if not _all_finite(problem.P):
-            raise ValidationError("P contains non-finite entries")
-    if not _all_finite(problem.A):
+                f"P must have shape ({n}, {n}), got {tuple(P.shape)}")
+        if is_sparse(P):
+            if not P.all_finite():
+                raise ValidationError("P contains non-finite entries")
+            if not _sparse_symmetric(P):
+                raise ValidationError(
+                    "P must be symmetric (pass the full matrix; "
+                    "the reference takes upper-triangular CSC)")
+        else:
+            if not torch.equal(P, P.T):
+                raise ValidationError(
+                    "P must be symmetric (pass the full matrix; "
+                    "the reference takes upper-triangular CSC)")
+            if not _all_finite(P):
+                raise ValidationError("P contains non-finite entries")
+    if is_sparse(problem.A):
+        if not problem.A.all_finite():
+            raise ValidationError("A contains non-finite entries")
+    elif not _all_finite(problem.A):
         raise ValidationError("A contains non-finite entries")
     if not _all_finite(problem.b):
         raise ValidationError("b contains non-finite entries")

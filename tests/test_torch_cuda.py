@@ -124,13 +124,17 @@ def test_ds_matvec_batched_kernel_takes_strided_and_unaligned_x(cuda):
     torch.testing.assert_close(dsmatvec.ds_matvec_batched(sub, x),
                                dsmatvec.ds_matvec_batched_plain(sub, x),
                                rtol=1e-12, atol=1e-12)
-    with pytest.raises(ValueError, match="at most 65535"):
-        big = dsmatvec.split_operand(torch.zeros(65536, 1, 4,
-                                                 dtype=torch.float64,
-                                                 device=cuda))
-        dsmatvec.ds_matvec_batched(big, torch.zeros(65536, 4,
-                                                    dtype=torch.float64,
-                                                    device=cuda))
+    # more problems than gridDim.z's 65535: two launches, one a chunk
+    big = dsmatvec.split_operand(torch.randn(65536, 1, 4,
+                                             dtype=torch.float64,
+                                             device=cuda))
+    xb = torch.randn(65536, 4, dtype=torch.float64, device=cuda)
+    before = dsmatvec.batched_launches
+    yb = dsmatvec.ds_matvec_batched(big, xb)
+    torch.cuda.synchronize()
+    assert dsmatvec.batched_launches == before + 2
+    torch.testing.assert_close(yb, dsmatvec.ds_matvec_batched_plain(big, xb),
+                               rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("shape", [(1024, 100, 100), (3, 37, 101),
@@ -852,3 +856,69 @@ def test_ozaki_matmul_on_the_card(cuda, shape):
              * np.abs(B).max(-2, keepdims=True) * A.shape[-1])
     assert np.all(np.isfinite(C))
     assert float(np.max(np.abs((C - T).astype(np.float64)) / scale)) < 1e-14
+
+
+def _sparse_tails(m=400, n=300, seed=9):
+    """tests/test_sparse.py's tails fixture at a larger size: random
+    sparse entries, dense rows 3 and 41 and dense columns 0 and 17 as
+    tails; (scipy CSC, SparseA on the CPU)."""
+    import scipy.sparse as sp
+    from scs_tpu_torch.ops import sparse
+    rng = np.random.RandomState(seed)
+    A = sp.random(m, n, density=0.05, random_state=rng,
+                  data_rvs=rng.randn).tolil()
+    for r in (3, 41):
+        A[r, :] = rng.randn(n)
+    for c in (0, 17):
+        A[:, c] = rng.randn(m, 1)
+    A = A.tocsc()
+    return A, sparse.sparse_from_scipy(A, dense_rows=(3, 41),
+                                       dense_cols=(0, 17))
+
+
+def test_ds_sparse_matvec_on_the_card_matches_the_plain_version(cuda):
+    """K2 on the tiles and K1 on the two tails of each direction against
+    the plain versions, within 1e-13 (1 + max |A||x|), and one K2 and two
+    K1 launches an apply."""
+    from scs_tpu_torch.ops import sparse
+    A, S = _sparse_tails()
+    S = S.to(cuda)
+    rng = np.random.RandomState(1)
+    for T, M in ((S, A), (S.T, A.T)):
+        ds = sparse.ds_split_sparse(T)
+        x = torch.tensor(rng.randn(M.shape[1]), device=cuda)
+        before = (dsmatvec.launches, dsmatvec.batched_launches)
+        y = sparse.ds_sparse_matvec(ds, x)
+        torch.cuda.synchronize()
+        assert (dsmatvec.launches - before[0],
+                dsmatvec.batched_launches - before[1]) == (2, 1)
+        ref = sparse.ds_sparse_matvec(ds, x, plain=True)
+        xh = x.cpu().numpy()
+        tol = 1e-13 * (1 + float((abs(M) @ np.abs(xh)).max()))
+        assert float((y - ref).abs().max()) <= tol
+        assert float(np.abs(y.cpu().numpy() - M @ xh).max()) <= tol
+
+
+def test_sparse_indirect_mixed_solve_on_the_card_matches_the_cpu(cuda):
+    """demo_sparse at its widths and 3 stages (600 x 384; A' pads its
+    gather from 600 to 640) through the indirect backend, mixed: on the
+    card (K2 on the tiles, CG graphs on the float32 shadow) and on the CPU
+    through the plain versions; the same status, objectives within 1e-4
+    (1 + |pobj|), iteration counts within [0.8, 1.25] (CG stops on
+    data-dependent tests, summed in other orders)."""
+    from scs_tpu_torch import demo_sparse
+    prob, spec, opt, _ = demo_sparse.build_problem(K=3, seed=3)
+    stg = Settings(linsys="indirect", eps_abs=1e-5, eps_rel=1e-5)
+    dsmatvec.batched_launches = 0
+    ws = Workspace(prob, spec, None, stg)
+    _, info = ws.solve()
+    launches = dsmatvec.batched_launches
+    cpu = Workspace(prob, spec, None, Settings(
+        linsys="indirect", mixed_precision=True, eps_abs=1e-5,
+        eps_rel=1e-5), device="cpu", ds_split=True)
+    _, ref = cpu.solve()
+    assert info.status == ref.status == "solved"
+    assert launches >= 2 * info.iter
+    assert abs(info.pobj - ref.pobj) <= 1e-4 * (1 + abs(ref.pobj))
+    assert abs(info.pobj - opt) <= 1e-3 * (1 + abs(opt))
+    assert 0.8 <= info.iter / ref.iter <= 1.25

@@ -254,9 +254,12 @@ def test_indefinite_P_is_refused_as_in_jax():
 
 
 def test_sparse_A_raises_naming_its_item():
+    """A torch sparse tensor is not an operand of either backend: the
+    TypeError names the constructor of the port's sparse operand."""
     A = torch.eye(3, dtype=torch.float64).to_sparse()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        indirect.precompute(A, None, 0)
+    for backend in (indirect, get_backend("direct")):
+        with pytest.raises(TypeError, match="sparse_from_scipy"):
+            backend.precompute(A, None, 0)
 
 
 # ---- a batch ----
