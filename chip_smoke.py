@@ -99,6 +99,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      instance (SPARSE_CUT_STAGES stages, n = 8192, the widths unchanged)
      through the direct backend pure and mixed, sparse against dense, and
      through the indirect backend in pure float64 twice, bit for bit;
+ 15. the entry points (`entry_phase`): the tracked-rank PSD projection
+     (`Settings.psd_rank`) on the planted low-rank SDP of
+     `models.planted_lowrank_sdp` (one PSD block of 400, rank 4, n = 200,
+     m = 80204) direct in pure float64 and mixed at eps 1e-6, psd_rank 0
+     and 8, each within 1e-4 (1 + |opt|) of its planted optimum with the
+     share of certificates passed; phase 12's large PSD program direct
+     mixed with psd_rank 0 and 8; 64 lanes of the PSD batch mixed with
+     float64 state, psd_rank 0 and 2, the same statuses; the headline
+     and large SOCPs written by `io.write_scs_data` and by the Python
+     writer (the same bytes), read back by the native and the Python
+     reader (the arrays equal), each solved by
+     `compat.SCS` (K1 counted) with the bits of `Workspace` on the same
+     arrays, `python -m scs_tpu_torch.run_from_file` in a process of its
+     own on the headline file (rc 0, the same objective), the 64-stage
+     `demo_sparse` file read in sparse storage; the large SOCP direct
+     mixed, and indirect mixed capped at 500 iterations, with a
+     checkpoint every 50 iterations resumed from the middle one, bit for
+     bit; and with the CSV trace, profile_phases, both, and verbose
+     against the plain solve (the same bits; ms per iteration and host syncs per
+     iteration; the CSV's rows and last row against Info, the timers
+     against the solve time);
   9. last, a profile of 25 iterations of the large SOCP, mixed, of 25
      batched steps of the headline batch's float32-state phase and of 25
      iterations of phase 14's full sparse instance, mixed
@@ -107,11 +128,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      Anderson QR against torch.linalg.qr.
 Phase 2 also holds K2 and K3 against their plain versions at the batched
 shapes, and K4 and K5 against theirs.
-The float32-state batches of phases 11, 12 and 13 each run in a process
-of their own (this script with `--batch-child NAME`), started after phase
-2 and run beside phases 3-10 on the same card; each phase waits for its
-batch's result where it holds it to the other runs. Their times, and those
-of phases 3-10, are taken with the card and the host shared.
+The float32-state batches of phases 11, 12 and 13 each run in a
+process of their own (this script with `--batch-child NAME`), started
+after phase 2 and run beside phases 3-10 on the same card; phase 15's
+psd_rank batch runs the same way, started after phase 10 and run beside
+phases 11-14. Each phase waits for its batch's result where it holds it
+to the other runs. Their times, and those of phases 3-14, are taken with
+the card and the host shared.
 Phases 3-6 run the direct backend (`Settings(linsys="direct")`).
 Each phase ends with a line `phase N done at T s` (seconds since the
 start). The whole run, the build included, has to end inside 1200 s on
@@ -122,12 +145,14 @@ and per sparse use of K2 and K1 (phase 14), the last line {"ok": true,
 """
 
 import atexit
+import csv
 import dataclasses
 import functools
 import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -140,7 +165,8 @@ import warnings
 import numpy as np
 import torch
 
-from scs_tpu_torch import Settings, Workspace, accel, demo_sparse
+from scs_tpu_torch import Settings, Workspace, accel, compat, config, \
+    demo_sparse, io
 from scs_tpu_torch.cones import box as box_cone
 from scs_tpu_torch.cones import exp as exp_cone
 from scs_tpu_torch.cones import graphs, project, psd, segments, soc, spectral
@@ -149,6 +175,7 @@ from scs_tpu_torch.demo_socp import make_spec
 from scs_tpu_torch.linsys import direct, indirect
 from scs_tpu_torch.models import gen_planted
 from scs_tpu_torch.models import mixed_cones, psd_cones, spectral_cones
+from scs_tpu_torch.models import planted_lowrank_sdp
 from scs_tpu_torch.types import ConeData
 from scs_tpu_torch.ops import (_build, dsmatmul, dsmatvec, logdet, ozaki,
                                roofline, sparse, sumlargest)
@@ -158,6 +185,7 @@ from scs_tpu_torch.parallel import (BatchWorkspace,
 from scs_tpu_torch.parallel import batch as batch_mod
 from scs_tpu_torch.solver_batched import BatchedIteration
 from scs_tpu_torch.types import ConeSpec
+from scs_tpu_torch.utils import native
 
 # H100 SXM, NVIDIA's data sheet: HBM3 bandwidth, float64 peak outside
 # and inside the tensor cores, float32 peak outside them, all at the full
@@ -1029,11 +1057,17 @@ def _f32_batch_case(name: str):
             f"spectral batch mixed B={SPECTRAL_F32_LANES}")
 
 
+def _as_json(res: dict) -> dict:
+    return {k: v.tolist() if isinstance(v, np.ndarray) else v
+            for k, v in res.items()}
+
+
 def f32_batch_child(name: str) -> dict:
     """The child's work: the batch `name` in the default mode (mixed,
     float32 state) through solve_batch and its gates (objective within
     5e-3 of the planted optimum, SCS's termination test), with the
-    spectral kernels' launches; numpy arrays as lists."""
+    spectral kernels' launches; numpy arrays as lists. "psd-rank" is
+    phase 15's batch instead (`psd_rank_batch`)."""
     torch.set_num_threads(1)
     parent = os.getppid()
 
@@ -1044,6 +1078,10 @@ def f32_batch_child(name: str) -> dict:
         os._exit(1)
 
     threading.Thread(target=orphaned, daemon=True).start()
+    if name == "psd-rank":
+        runs = psd_rank_batch()
+        return {"runs": {str(k): _as_json(v) for k, v in runs.items()},
+                "ended_at": time.time()}
     spec, batch, label = _f32_batch_case(name)
     logdet.launches = 0
     sumlargest.launches = 0
@@ -1051,8 +1089,7 @@ def f32_batch_child(name: str) -> dict:
                       f"{label} (a process of its own)", tol=5e-3)
     res["k6"], res["k7"] = logdet.launches, sumlargest.launches
     res["ended_at"] = time.time()
-    return {k: v.tolist() if isinstance(v, np.ndarray) else v
-            for k, v in res.items()}
+    return _as_json(res)
 
 
 class BatchChild:
@@ -1089,7 +1126,8 @@ class BatchChild:
               f"{res['ended_at'] - self.started_at:.1f} s after its start; "
               f"waited for here {time.perf_counter() - t_wait:.1f} s")
         for k in ("status", "pobj", "iters"):
-            res[k] = np.asarray(res[k])
+            if k in res:
+                res[k] = np.asarray(res[k])
         return res
 
     @staticmethod
@@ -2105,9 +2143,16 @@ def sparse_kernel_case(label: str, S, M, seed: int) -> dict:
         if tail is not None:
             v = x if tail is ds.rows_split else x.index_select(
                 0, ds.cols_index)
+            # the same function in one library call: torch.mv on the
+            # float64 tail (hi + lo); bound: the pair read once (8 bytes an
+            # element), x read and y written once (8 bytes each)
+            T = tail.hi.double() + tail.lo.double()
+            rows, cols = tail.hi.shape
             out["tails_ms"].append(
                 [list(tail.hi.shape),
-                 median_ms(lambda: dsmatvec.ds_matvec(tail, v))])
+                 median_ms(lambda: dsmatvec.ds_matvec(tail, v)),
+                 median_ms(lambda: torch.mv(T, v)),
+                 8 * (rows * cols + rows + cols) / HBM_BYTES_PER_S * 1e3])
     try:
         csr = _csr_on_card(M)
         out["library_ms"] = median_ms(lambda: torch.mv(csr, x))
@@ -2120,8 +2165,9 @@ def sparse_kernel_case(label: str, S, M, seed: int) -> dict:
           f"{out['ms']:.4f} ms, bound {bound:.4f} ms ({by}), "
           f"{100 * bound / out['ms']:.0f}% of bound, gather "
           f"{out['gather_ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
-          f"whole apply {out['apply_ms']:.4f} ms, tails K1 "
-          f"{out['tails_ms']}, torch.mv (float64 CSR) "
+          f"whole apply {out['apply_ms']:.4f} ms, tails K1 [shape, ms, "
+          f"torch.mv ms, bound ms (bytes)] {out['tails_ms']}, torch.mv "
+          f"(float64 CSR) "
           f"{out['library_ms']} ms")
     return out
 
@@ -2337,6 +2383,413 @@ def sparse_phase(card: str, stages: int = 500) -> dict:
     return {"rows": rows, "band": band, "full": full, "cut": cut,
             "k1_cut": kcut, "prob": prob, "spec": spec}
 
+
+
+# phase 15: the entry points of ROADMAP items 13 and 14 (tracked-rank PSD,
+# files, compat, the CLI, checkpoint/resume, the trace and the timers)
+LOWRANK_NS, LOWRANK_R, LOWRANK_N = 400, 4, 200
+
+
+def _syncs_of(fn):
+    """(fn's result, the host synchronizations it made, counted from the
+    warnings of set_sync_debug_mode("warn"); explicit
+    torch.cuda.synchronize calls are not among them)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def tracked_solve(p, spec, stg, label: str, tol: float) -> dict:
+    """One Workspace solve on the card with the K1 and gate counts set to
+    0 just before: status, distance to the planted optimum (gate `tol`
+    (1 + |opt|)), SCS's termination test, iterations, ms/it, the share of
+    the tracked-rank projections whose certificate passed."""
+    torch.cuda.synchronize()
+    dsmatvec.launches = 0
+    psd.gate_checks = psd.gate_passes = 0
+    ws = Workspace(p.problem, spec, p.cone_data, stg)
+    sol, info = ws.solve()
+    torch.cuda.synchronize()
+    k1, checks, passes = dsmatvec.launches, psd.gate_checks, psd.gate_passes
+    one = tuple(torch.as_tensor(t).cuda()[None] for t in (
+        p.problem.A, p.problem.b, p.problem.c))
+    fails = {k: int(v.sum()) for k, v in termination_failures(
+        one, _lane_result(sol), stg).items() if v.any()}
+    err = abs(info.pobj - p.opt) / (1 + abs(p.opt))
+    it = max(info.iter, 1)
+    share_ok = passes / checks if checks else float("nan")
+    print(f"{label}: {info.status}, {info.iter} iterations, setup "
+          f"{info.setup_time:.1f} ms, solve {info.solve_time:.1f} ms, "
+          f"{info.solve_time / it:.3f} ms/iteration, pobj {info.pobj!r} "
+          f"(planted {p.opt!r}, rel err {err:.2e}), K1 launches {k1}, gate "
+          f"passed {passes} of {checks} ({share_ok:.3f}), SCS's tests "
+          f"failed {fails or 'none'}")
+    check(info.status == "solved", f"{label}: {info.status}")
+    check(err <= tol, f"{label}: {err:.2e} from the planted optimum, above "
+          f"{tol:.0e}")
+    check(not fails and bool(np.all(np.isfinite(sol.x))),
+          f"{label}: SCS's termination test fails {fails}, or x not finite")
+    if ws._mixed:
+        check(k1 >= 2 * info.iter, f"{label}: K1 launched {k1} times in "
+              f"{info.iter} iterations")
+    if stg.psd_rank:
+        check(checks > 0, f"{label}: the tracked-rank path did not run")
+    return {"iter": info.iter, "ms_per_it": info.solve_time / it,
+            "solve_ms": info.solve_time, "err": err, "k1": k1,
+            "gate": (passes, checks), "status": info.status}
+
+
+def psd_rank_batch() -> dict:
+    """Phase 15's batch (run in a process of its own): 64 lanes of the PSD
+    headline batch mixed with float64 state, psd_rank 0 and 2 (the
+    largest below half of its blocks of 6 and 8), each with its gate
+    counts; solve_batch's gates on each."""
+    pspec = psd_cones.headline_psd_spec()
+    pbatch = headline_batch(pspec, 64, 1000)
+    runs = {}
+    for rank in (0, 2):
+        psd.gate_checks = psd.gate_passes = 0
+        runs[rank] = solve_batch(
+            pspec, pbatch, Settings(linsys="direct", chunk_iters=250,
+                                    fast_f32=False, psd_rank=rank),
+            f"PSD batch B=64 mixed float64 state psd_rank {rank}", tol=2e-3)
+        runs[rank]["gate"] = [psd.gate_passes, psd.gate_checks]
+        print(f"PSD batch B=64 psd_rank {rank}: gate passed "
+              f"{psd.gate_passes} of {psd.gate_checks} lane decisions")
+    return runs
+
+
+def tracked_rank_phase(child: "BatchChild", large_exact=None) -> dict:
+    """Phase 15 (a): the planted low-rank SDP (one PSD block of 400, rank
+    4, n = 200, m = 80204) direct, pure float64 and mixed, at eps 1e-6,
+    with psd_rank 0 and 8; phase 12's large PSD program direct mixed with
+    psd_rank 8 against phase 12's run without (`large_exact`; solved here
+    where None); the child's 64 lanes of the PSD batch with psd_rank 0 and
+    2: the same statuses lane by lane, K2 launched."""
+    out = {}
+    t0 = time.perf_counter()
+    p = planted_lowrank_sdp(LOWRANK_NS, LOWRANK_R, LOWRANK_N, seed=0)
+    print(f"planted low-rank SDP: ns {LOWRANK_NS}, rank {LOWRANK_R}, n "
+          f"{p.problem.A.shape[1]}, m {p.problem.A.shape[0]}, A "
+          f"{p.problem.A.numel() * 8 / 2**20:.0f} MiB, host build "
+          f"{time.perf_counter() - t0:.1f} s")
+    for mode, mixed in (("pure f64", False), ("mixed", True)):
+        for rank in (0, 8):
+            out[("lowrank", mode, rank)] = tracked_solve(
+                p, p.spec, Settings(linsys="direct", mixed_precision=mixed,
+                                    eps_abs=1e-6, eps_rel=1e-6,
+                                    psd_rank=rank),
+                f"low-rank SDP direct {mode} psd_rank {rank}", 1e-4)
+        exact, tracked = (out[("lowrank", mode, r)] for r in (0, 8))
+        print(f"low-rank SDP direct {mode}: psd_rank 8 against exact eigh "
+              f"{tracked['ms_per_it']:.3f} / {exact['ms_per_it']:.3f} "
+              f"ms/iteration ({tracked['ms_per_it'] / exact['ms_per_it']:.3f}"
+              f"x), iterations {tracked['iter']} / {exact['iter']}")
+
+    pspec_big = psd_cones.large_psd_spec()
+    big = gen_planted(pspec_big, n=2048, seed=7, density=0.3)
+    if large_exact is None:
+        large_exact = tracked_solve(big, pspec_big, Settings(linsys="direct"),
+                                    "large PSD direct mixed psd_rank 0",
+                                    1e-3)
+    tracked = tracked_solve(big, pspec_big,
+                            Settings(linsys="direct", psd_rank=8),
+                            "large PSD direct mixed psd_rank 8", 1e-3)
+    exact_ms = large_exact["solve_ms"] / max(large_exact["iter"], 1)
+    print(f"large PSD direct mixed: psd_rank 8 against exact eigh "
+          f"{tracked['ms_per_it']:.3f} / {exact_ms:.3f} ms/iteration, "
+          f"iterations {tracked['iter']} / {large_exact['iter']}")
+    out["large PSD"] = tracked
+
+    runs = {int(k): v for k, v in child.result()["runs"].items()}
+    for rank, run in runs.items():
+        check(run["launches"] > 0, f"PSD batch psd_rank {rank}: no K2 "
+              f"launch")
+    check(runs[2]["gate"][1] > 0, "PSD batch psd_rank 2: the tracked-rank "
+          "path did not run")
+    check(runs[0]["status"] == runs[2]["status"],
+          "PSD batch: psd_rank 2 and exact statuses differ")
+    print(f"PSD batch B=64 (its own process): psd_rank 2 against exact "
+          f"wall {runs[2]['wall']:.3f} / {runs[0]['wall']:.3f} s, the same "
+          f"statuses, gate passed {runs[2]['gate'][0]} of "
+          f"{runs[2]['gate'][1]}")
+    out["batch"] = runs
+    return out
+
+
+def _csc_equal(S, T) -> bool:
+    return all(np.array_equal(a, b) for a, b in zip(
+        sparse.sparse_to_csc(S), sparse.sparse_to_csc(T)))
+
+
+def entry_files_phase(head_p, big_p, spec_big, tmp: str) -> dict:
+    """Phase 15 (b): the headline and large SOCPs written by the port's
+    writer (the native codec's build timed first) and by its Python
+    writer (the same bytes, each timed), read back by the native and the
+    Python reader (the arrays equal); each solved by
+    compat.SCS on the card against Workspace on the same arrays (the same
+    iterations and bits; K1 counted around the compat solve; the large
+    SOCP's Workspace solve under the sync count: phase 15 (c, d)'s plain
+    reference); the CLI in a process of its own on the headline file,
+    beside the solves; the 64-stage demo_sparse file read in sparse
+    storage."""
+    out = {}
+    t0 = time.perf_counter()
+    built = native.load() is not None
+    print(f"native codec (g++) built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s: {built}")
+    check(built, "the native codec did not build")
+    cli = None
+    for label, p, spec in (("headline", head_p, HEADLINE),
+                           ("large SOCP", big_p, spec_big)):
+        f = os.path.join(tmp, label.replace(" ", "_") + ".bin")
+        t0 = time.perf_counter()
+        io.write_scs_data(f, p.problem, spec, p.cone_data, Settings())
+        t_nw = time.perf_counter()
+        io._write_scs_data_py(f + ".py", p.problem, spec, p.cone_data,
+                              Settings())
+        t1 = time.perf_counter()
+        with open(f, "rb") as fa, open(f + ".py", "rb") as fb:
+            same_bytes = fa.read() == fb.read()
+        os.remove(f + ".py")
+        check(same_bytes, f"{label} file: the native and the Python "
+              f"writers' bytes differ")
+        nat = io.read_scs_data(f)
+        t2 = time.perf_counter()
+        py = io._assemble(io._read_scs_data_py(f), torch.float64, "dense",
+                          torch.device("cuda"))
+        t3 = time.perf_counter()
+        for name in ("A", "b", "c"):
+            ref = getattr(p.problem, name).cuda()
+            check(torch.equal(getattr(nat[0], name), ref)
+                  and torch.equal(getattr(py[0], name), ref),
+                  f"{label} file: {name} read back differs")
+        check(nat[1] == py[1] == spec, f"{label} file: cone spec differs")
+        print(f"{label} file: {os.path.getsize(f)} bytes, native write "
+              f"{(t_nw - t0) * 1e3:.1f} ms, Python write "
+              f"{(t1 - t_nw) * 1e3:.1f} ms (the same bytes), native read "
+              f"{(t2 - t1) * 1e3:.1f} ms, Python read {(t3 - t2) * 1e3:.1f}"
+              f" ms, arrays equal")
+        out[label + " io_ms"] = {
+            "native write": (t_nw - t0) * 1e3, "python write":
+            (t1 - t_nw) * 1e3, "native read": (t2 - t1) * 1e3,
+            "python read": (t3 - t2) * 1e3}
+        if cli is None:
+            # the CLI on the headline file, beside the solves below
+            t_cli = time.perf_counter()
+            cli = subprocess.Popen(
+                [sys.executable, "-m", "scs_tpu_torch.run_from_file", f,
+                 "linsys", "direct", "verbose", "0"],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        data = {k: getattr(p.problem, k).numpy() for k in ("A", "b", "c")}
+        cone = {"z": spec.z, "l": spec.l, "q": list(spec.q)}
+        torch.cuda.synchronize()
+        dsmatvec.launches = 0
+        csol = compat.SCS(data, cone, verbose=False, use_indirect=False,
+                          device="cuda").solve()
+        torch.cuda.synchronize()
+        k1 = dsmatvec.launches
+        (wsol, winfo), syncs = _syncs_of(lambda: Workspace(
+            p.problem, spec, p.cone_data, Settings(linsys="direct")).solve())
+        ci = csol["info"]
+        same = (ci["iter"] == winfo.iter
+                and all(np.array_equal(csol[k], getattr(wsol, k))
+                        for k in ("x", "y", "s")))
+        print(f"{label} compat.SCS on the card: {ci['status']}, "
+              f"{ci['iter']} iterations, solve {ci['solve_time']:.1f} ms, "
+              f"pobj {ci['pobj']!r}, K1 launches {k1}; Workspace on the "
+              f"same arrays {winfo.iter} iterations, "
+              f"{winfo.solve_time / max(winfo.iter, 1):.3f} ms/iteration, "
+              f"host syncs {syncs}, the same bits {same}")
+        check(ci["status"] == "solved" and same and k1 >= 2 * ci["iter"],
+              f"{label} compat: {ci['status']}, same as Workspace {same}, "
+              f"K1 launches {k1}")
+        out[label] = {"pobj": ci["pobj"], "k1": k1, "iter": ci["iter"],
+                      "plain": (wsol, winfo, syncs)}
+
+    stdout, stderr = cli.communicate(timeout=300)
+    obj = stdout.split("objective = ")[-1].split()[:1]
+    want = f"{out['headline']['pobj']:.6f}"
+    print(f"python -m scs_tpu_torch.run_from_file on the headline file: rc "
+          f"{cli.returncode} after {time.perf_counter() - t_cli:.1f} s, "
+          f"objective {obj} (compat {want})")
+    check(cli.returncode == 0 and obj == [want],
+          f"run_from_file: rc {cli.returncode}, objective {obj} != {want}: "
+          f"{stderr[-500:]}")
+
+    t0 = time.perf_counter()
+    sprob, sspec, _, _ = demo_sparse.build_problem(K=SPARSE_CUT_STAGES)
+    f = os.path.join(tmp, "demo_sparse.bin")
+    t1 = time.perf_counter()
+    io.write_scs_data(f, sprob, sspec)
+    t2 = time.perf_counter()
+    rprob, rspec, _, _ = io.read_scs_data(f, storage="sparse")
+    t3 = time.perf_counter()
+    ok = (rspec == sspec and sparse.is_sparse(rprob.A)
+          and _csc_equal(rprob.A, sprob.A)
+          and torch.equal(rprob.b.cpu(), sprob.b))
+    print(f"demo_sparse K={SPARSE_CUT_STAGES} file: A {sprob.A.shape}, "
+          f"{os.path.getsize(f)} bytes, host build {t1 - t0:.1f} s, write "
+          f"{(t2 - t1) * 1e3:.1f} ms, sparse read onto the card "
+          f"{(t3 - t2) * 1e3:.1f} ms, the same CSC triplets {ok}")
+    check(ok, "demo_sparse file: the sparse read differs from the written "
+          "operand")
+    return out
+
+
+def checkpoint_solve(big_p, spec_big, tmp: str, stg, label: str):
+    """The large SOCP under `stg` with a checkpoint every 50 iterations
+    (each kept), resumed from the middle one taken while running: the
+    same iteration count, linear-solver iterations and bits as the
+    uninterrupted solve. Returns (solution, info, checkpoint record)."""
+    kept = []
+    save = io.save_state
+
+    def keep(filename, state, phase=0):
+        save(filename, state, phase)
+        path = os.path.join(tmp, f"ck{len(kept)}.npz")
+        os.replace(filename, path)
+        kept.append((path, phase, state.status, state.iter))
+
+    io.save_state = keep
+    try:
+        ws = Workspace(big_p.problem, spec_big, big_p.cone_data, stg)
+        sol, info = ws.solve(checkpoint_file=os.path.join(tmp, "ck.npz"),
+                             checkpoint_every=50)
+    finally:
+        io.save_state = save
+    running = [k for k in kept if k[2] == config.UNFINISHED]
+    check(bool(running), f"{label} checkpoints: none taken while running "
+          f"({kept})")
+    path, phase, _, at = running[len(running) // 2]
+    rws = Workspace(big_p.problem, spec_big, big_p.cone_data, stg)
+    rsol, rinfo = rws.solve(resume_from=path)
+    same = all(np.array_equal(getattr(rsol, k), getattr(sol, k))
+               for k in ("x", "y", "s"))
+    print(f"{label} with a checkpoint every 50 iterations: {info.status}, "
+          f"{info.iter} iterations, {ws.tot_cg_its} linear-solver "
+          f"iterations, solve {info.solve_time:.1f} ms ({len(kept)} "
+          f"checkpoints of {os.path.getsize(kept[0][0])} bytes); resumed "
+          f"from iteration {at} (phase {phase}): {rinfo.status}, "
+          f"{rinfo.iter} iterations, {rws.tot_cg_its} linear-solver "
+          f"iterations, solve {rinfo.solve_time:.1f} ms, the same bits "
+          f"{same}")
+    check(rinfo.iter == info.iter and rws.tot_cg_its == ws.tot_cg_its
+          and same, f"{label} checkpoint/resume: iterations {rinfo.iter} / "
+          f"{info.iter}, linear-solver iterations {rws.tot_cg_its} / "
+          f"{ws.tot_cg_its}, same bits {same}")
+    for k in kept:
+        os.remove(k[0])
+    return sol, info, {"iter": info.iter, "resumed_at": at, "same": same}
+
+
+def checkpoint_phase(big_p, spec_big, tmp: str, plain) -> dict:
+    """Phase 15 (c): checkpoint/resume (`checkpoint_solve`) on the large
+    SOCP direct mixed, held also to `plain` (a solve without
+    checkpoints), and indirect mixed capped at TRACE_ITERS iterations
+    (the uninterrupted indirect solve takes ~1600 iterations of ~40 CG
+    iterations each)."""
+    sol, info, out = checkpoint_solve(big_p, spec_big, tmp,
+                                      Settings(linsys="direct"),
+                                      "large SOCP direct mixed")
+    psol, pinfo = plain[:2]
+    plain_same = all(np.array_equal(getattr(psol, k), getattr(sol, k))
+                     for k in ("x", "y", "s"))
+    print(f"large SOCP direct mixed without checkpoints: "
+          f"{pinfo.iter} iterations, solve {pinfo.solve_time:.1f} ms, the "
+          f"same bits as with them {plain_same}")
+    check(pinfo.iter == info.iter and plain_same,
+          f"checkpoints change the direct solve: iterations {info.iter} / "
+          f"{pinfo.iter}, same bits {plain_same}")
+    res = {"direct mixed": out}
+    res["indirect mixed"] = checkpoint_solve(
+        big_p, spec_big, tmp, Settings(max_iters=TRACE_ITERS),
+        f"large SOCP indirect mixed, {TRACE_ITERS} iterations")[2]
+    return res
+
+
+# phase 15 (c)'s indirect solve and (d)'s solves stop here: the large
+# SOCP takes 1400 iterations direct
+TRACE_ITERS = 500
+
+
+def trace_timer_phase(big_p, spec_big, tmp: str) -> dict:
+    """Phase 15 (d): the large SOCP direct mixed capped at TRACE_ITERS
+    iterations, plain, with the CSV trace, with profile_phases, with both
+    and with verbose, each under the sync count: ms/it, host
+    synchronizations an iteration, the plain run's bits; the CSV's rows and last row against
+    Info, the timers against the solve time."""
+    out = {}
+    f = os.path.join(tmp, "trace.csv")
+    modes = {"plain": {}, "csv": dict(log_csv_filename=f),
+             "profile_phases": dict(profile_phases=True),
+             "csv and profile_phases": dict(log_csv_filename=f,
+                                            profile_phases=True),
+             "verbose": dict(verbose=True)}
+    ref = None
+    for mode, kw in modes.items():
+        stg = Settings(linsys="direct", max_iters=TRACE_ITERS, **kw)
+        (sol, info), syncs = _syncs_of(lambda: Workspace(
+            big_p.problem, spec_big, big_p.cone_data, stg).solve())
+        it = max(info.iter, 1)
+        if ref is None:
+            ref = (sol, info)
+        same = info.iter == ref[1].iter and np.array_equal(sol.x, ref[0].x)
+        line = (f"large SOCP direct mixed, {TRACE_ITERS} iterations, {mode}:"
+                f" {info.status}, {info.solve_time / it:.3f} ms/iteration, "
+                f"host syncs {syncs} ({syncs / it:.3f} per iteration), the "
+                f"plain run's bits {same}")
+        if "log_csv_filename" in kw:
+            with open(f) as fh:
+                rows = list(csv.reader(fh))
+            head, last = rows[0], rows[-1]
+            vals = {k: float(last[head.index(k)])
+                    for k in ("res_pri", "res_dual", "gap")}
+            line += (f", {len(rows) - 1} rows, last row {vals}")
+            check(len(rows) - 1 == info.iter and all(
+                vals[k] == getattr(info, k) for k in vals),
+                f"CSV trace: {len(rows) - 1} rows for {info.iter} "
+                f"iterations, last row {vals}")
+        if kw.get("profile_phases"):
+            timers = (info.lin_sys_time, info.cone_time, info.accel_time)
+            line += (f", lin_sys {timers[0]:.1f} ms, cone {timers[1]:.1f} "
+                     f"ms, accel {timers[2]:.1f} ms of {info.solve_time:.1f}"
+                     f" ms")
+            check(all(math.isfinite(t) and t >= 0 for t in timers)
+                  and sum(timers) <= info.solve_time,
+                  f"profile_phases: timers {timers}, solve "
+                  f"{info.solve_time}")
+        print(line)
+        check(same, f"{mode}: not the plain run's iterations and bits")
+        out[mode] = {"ms_per_it": info.solve_time / it,
+                     "syncs_per_it": syncs / it}
+    return out
+
+
+def entry_phase(head_p, big_p, spec_big, child: "BatchChild",
+                large_exact=None) -> dict:
+    """Phase 15 (see the module docstring); `child` the process that
+    solves its psd_rank batch, `large_exact` phase 12's large PSD direct
+    mixed run (None: solved here)."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="scs_entry_")
+    atexit.register(shutil.rmtree, tmp, True)
+    res = {"tracked": tracked_rank_phase(child, large_exact)}
+    print(f"phase 15 (a) done at {time.perf_counter() - t0:.1f} s")
+    res["files"] = entry_files_phase(head_p, big_p, spec_big, tmp)
+    print(f"phase 15 (b) done at {time.perf_counter() - t0:.1f} s")
+    res["checkpoint"] = checkpoint_phase(
+        big_p, spec_big, tmp, res["files"]["large SOCP"]["plain"])
+    res["trace"] = trace_timer_phase(big_p, spec_big, tmp)
+    print(f"phase 15 (c, d) done at {time.perf_counter() - t0:.1f} s")
+    return res
 
 
 def share(c: dict) -> str:
@@ -2643,6 +3096,11 @@ def main() -> int:
 
     done(10)
 
+    # phase 15's psd_rank batch in a process of its own, beside phases
+    # 11-14 (the main path's timed phases 3-10 run without it)
+    children["psd-rank"] = BatchChild("psd-rank")
+    print("started phase 15's psd_rank batch in a process of its own")
+
     # 11. the mixed-cone configurations: box, exp and power cones beside
     # zero, nonnegative and SOC rows. First each cone family as a CUDA
     # graph against its eager run at both configurations' shapes, one
@@ -2717,7 +3175,7 @@ def main() -> int:
     # 1024 (float32 state with K2 and K3 counted, float64 state, pure
     # float64), every mixed lane through the forced float64 polish, and
     # BatchWorkspace on 64 lanes
-    psd_phase(card, children["psd"])
+    psd12 = psd_phase(card, children["psd"])
 
     done(12)
 
@@ -2742,6 +3200,16 @@ def main() -> int:
     sparse14 = sparse_phase(card)
 
     done(14)
+
+    # 15. the entry points: the tracked-rank PSD projection (psd_rank) on a
+    # planted low-rank SDP, phase 12's large PSD program and 64 lanes of
+    # its batch; files written and read (native and Python), compat.SCS
+    # against Workspace, the CLI, a sparse file; checkpoint/resume; the
+    # CSV trace, the phase timers and verbose on the large SOCP
+    entry_phase(gen_planted(head, n=100, seed=1000, density=0.1), big_p,
+                spec, children["psd-rank"], psd12["large"]["direct mixed"])
+
+    done(15)
 
     # 9. where the time of an iteration goes, mixed and pure, on the large
     # SOCP (100 iterations each unprofiled, in turns, then 25 under the

@@ -18,6 +18,11 @@ CG, the default) or the direct (Cholesky) linear-system backend, in pure
 and mixed precision. A and P may be dense tensors or sparse operands
 (`ops.sparse.SparseA`, blocked-ELL tiles with dense row and column
 tails, built by `ops.sparse.sparse_from_scipy`), on both backends.
+Problems come also from SCS's binary files (`io.read_scs_data`, or
+`python -m scs_tpu_torch.run_from_file FILE`) and from scs-python's data
+and cone dicts (`compat.SCS`, `compat.solve`); a solve can print SCS's
+log, write a per-iteration CSV trace, time its phases, checkpoint and
+resume, and track a low-rank PSD projection (`Settings.psd_rank`).
 The double-single matvec that the mixed path runs is a hand-written CUDA
 kernel (`ops/dsmatvec.py`, `csrc/dsmatvec.cu`); so are the double-single
 matmul (`ops/dsmatmul.py`) and the roofline probe's read kernel
@@ -42,7 +47,14 @@ from .types import (ConeData, ConeSpec, Info, Problem,  # noqa: E402
 
 __version__ = config.VERSION
 
+
+def scs_version() -> str:
+    """The version string (scs_version(), src/scs_version.c:1-13)."""
+    return __version__
+
+
 __all__ = [
     "Workspace", "solve", "Problem", "ConeSpec", "ConeData", "Settings",
     "Solution", "Info", "config", "__version__", "problem_from_csc",
+    "scs_version",
 ]

@@ -8,11 +8,18 @@ the time limit between chunks.
 The device is a keyword of the entry points, not a setting: it defaults to
 "cuda", and without a CUDA device the workspace raises rather than solving
 on the CPU. The tests pass device="cpu".
+
+Beside the solve, as in the JAX package: the reference's verbose log
+(`Settings.verbose`), the per-iteration CSV trace (`log_csv_filename`),
+measured phase timers (`profile_phases`), the problem written to a file
+at setup (`write_data_filename`), and checkpoint/resume of a solve in
+progress (`Workspace.solve(checkpoint_file=..., resume_from=...)`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -21,13 +28,15 @@ import torch
 
 from . import accel, config
 from .cones.box import scale_box_bounds
+from .cones.project import proj_dual_cone
 from .equilibrate import (equilibrate, identity_scaling, normalize_b_c,
                           normalize_xys, unnormalize_xys)
 from .linsys import Mats, get_backend, prepare_operands, resolve_mixed
 from .ops.sparse import is_sparse, sparse_to_csc
-from .solver import (Iteration, LoopState, ProblemData, Residuals,
-                     moreau_repolish, pack_warm_v, populate_residuals,
-                     set_diag_r)
+from .solver import (TRACE_COLUMNS, Iteration, LoopState, PhaseClock,
+                     ProblemData, Residuals, Tracer, moreau_repolish,
+                     pack_warm_v, populate_residuals, set_diag_r,
+                     synchronize)
 from .types import ConeData, ConeSpec, Info, Problem, Settings, Solution
 from .validation import ValidationError, validate
 
@@ -41,23 +50,6 @@ def _resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {dev}")
     return dev
-
-
-def _not_ported(stg: Settings) -> None:
-    """Raise for settings that ask for parts of the JAX package that this
-    package does not have yet."""
-    asked = {
-        "verbose": (stg.verbose, 14),
-        "log_csv_filename": (stg.log_csv_filename, 14),
-        "write_data_filename": (stg.write_data_filename, 14),
-        "profile_phases": (stg.profile_phases, 14),
-        "psd_rank": (stg.psd_rank, 13),
-    }
-    for name, (val, item) in asked.items():
-        if val:
-            raise NotImplementedError(
-                f"Settings.{name} is not ported yet (ROADMAP queue 1, "
-                f"item {item})")
 
 
 def _lam_min_host(P) -> float:
@@ -98,6 +90,42 @@ def _lam_min_lobpcg(P) -> float:
     return float(theta.min())
 
 
+class _CsvTrace:
+    """The per-iteration CSV trace (log_data_to_csv, rw.c:707-861; the
+    JAX package's `_CsvTrace`): the columns of `solver.TRACE_COLUMNS` and
+    `time`, the chunk's end on the host clock, shared by its rows. Values
+    are written with repr(float). The solver's `Tracer` collects a chunk's
+    rows on the device and the host reads them once per chunk. A check
+    step that terminates leaves iter as it was, so its row shares its
+    iter with the row before; the later row wins, and a row is written
+    once a later iter arrives, or at close."""
+
+    COLUMNS = ",".join(TRACE_COLUMNS) + ",time"
+
+    def __init__(self, filename: str):
+        self._f = open(filename, "w")
+        self._f.write(self.COLUMNS + "\n")
+        self._pending = None      # (iter, row, elapsed_s)
+
+    def _flush(self) -> None:
+        if self._pending is not None:
+            _, row, elapsed_s = self._pending
+            self._f.write(",".join(repr(float(v)) for v in row)
+                          + f",{elapsed_s!r}\n")
+            self._pending = None
+
+    def write_rows(self, rows: np.ndarray, elapsed_s: float) -> None:
+        for row in rows:
+            it = int(row[0])
+            if self._pending is not None and it > self._pending[0]:
+                self._flush()
+            self._pending = (it, row, elapsed_s)
+
+    def close(self) -> None:
+        self._flush()
+        self._f.close()
+
+
 class Workspace:
     """Reusable solver workspace (ScsWork analog).
 
@@ -118,7 +146,6 @@ class Workspace:
         t0 = time.perf_counter()
         stg = settings
         dev = _resolve_device(device)
-        _not_ported(stg)
         dtype = stg.dtype
         validate(problem, spec, cone_data, stg)
         self.spec = spec
@@ -141,6 +168,7 @@ class Workspace:
         if cone_data is None:
             cone_data = ConeData.make(spec, dtype=dtype)
         cone_data = ConeData(bu=put(cone_data.bu), bl=put(cone_data.bl))
+        orig_cone = cone_data
 
         if stg.normalize:
             A_n, P_n, scal = equilibrate(A, P, spec)
@@ -188,6 +216,14 @@ class Workspace:
         # CG iterations of the last solve (indirect backend; the direct
         # backend counts its refinement passes)
         self.tot_cg_its = 0
+        self._phase_ms = None
+        if stg.write_data_filename:
+            # the original (unnormalized) data; a sparse operand streams
+            # its CSC triplets through the writer at O(nnz)
+            from .io import write_scs_data
+            write_scs_data(stg.write_data_filename,
+                           Problem(A=A, b=b_orig, c=c_orig, P=P), spec,
+                           orig_cone, stg)
         self.setup_time_ms = (time.perf_counter() - t0) * 1e3
 
     def _mats(self) -> Mats:
@@ -203,12 +239,15 @@ class Workspace:
         positive diagonal passes that test, the smallest eigenvalue of
         the normalized P (congruence keeps the inertia) from a float64
         eigvalsh on the solve's device, held to -1e-8 max(1, max|P|): the
-        JAX package's exact (CPU) branch, on either device. A sparse P is
-        densified for the eigvalsh up to n = 4096; beyond, its smallest
-        eigenvalue comes from ARPACK on a host CSC copy (`_lam_min_host`,
-        same tolerance), or, where ARPACK fails, from LOBPCG on the
-        device, held to -2e-4 max(1, max|P|) as the JAX package's
-        LOBPCG branch."""
+        JAX package's exact (CPU) branch, on either device, for a dense P
+        of any size: above n = 4096 the JAX package probes by ARPACK on a
+        host copy (`scs_tpu/api.py:283-306`), which the card's eigvalsh
+        beats end to end (`tools/torch_convexity_probe.py`; PERF.md,
+        ROADMAP section 3). A sparse P is densified for the eigvalsh up to
+        n = 4096; beyond, its smallest eigenvalue comes from ARPACK on a
+        host CSC copy (`_lam_min_host`, same tolerance), or, where ARPACK
+        fails, from LOBPCG on the device, held to -2e-4 max(1, max|P|) as
+        the JAX package's LOBPCG branch."""
         factor = (self.derived[0] if isinstance(self.derived, tuple)
                   else self.derived)
         if self.stg.linsys == "direct":
@@ -300,18 +339,43 @@ class Workspace:
         Mixed precision solves in two phases, as the JAX package does: a
         fast phase against targets floored at MIXED_FAST_FLOOR (the mixed
         path's true-residual floor), then, where the user's targets lie
-        below it, a polish phase from the same state against them."""
-        if checkpoint_file or checkpoint_every or resume_from:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported yet (ROADMAP queue 1, "
-                "item 14)")
+        below it, a polish phase from the same state against them.
+
+        checkpoint_file / checkpoint_every write the whole solver state
+        (`io.save_state`) every `checkpoint_every` iterations, rounded up
+        to a chunk's end, with the phase it was taken in; resume_from
+        restores such a checkpoint and continues in that phase, so a
+        resumed solve ends on the same iteration count and the same bits
+        as the uninterrupted one on the same device (capability beyond
+        the reference, for preemptible machines)."""
         stg = self.stg
         t0 = time.perf_counter()
         st = self._init_state(sol if (warm_start and sol is not None)
                               else None)
+        first_phase = 0
+        if resume_from is not None:
+            from .io import load_state
+            st, first_phase = load_state(resume_from, st)
+        if stg.verbose:
+            self._print_header()
+        csv = tracer = None
+        if stg.log_csv_filename:
+            csv = _CsvTrace(stg.log_csv_filename)
+            tracer = Tracer(self.spec, config.CONVERGED_INTERVAL,
+                            stg.dtype, self.device)
+        clock = PhaseClock(self.device) if stg.profile_phases else None
+
         time_limit_reached = False
         interrupted = False
         chunk = max(stg.chunk_iters, config.CONVERGED_INTERVAL)
+        if stg.verbose:
+            chunk = min(chunk, config.PRINT_INTERVAL)
+        if csv is not None:
+            chunk = config.CONVERGED_INTERVAL
+        if checkpoint_file and checkpoint_every > 0:
+            chunk = min(chunk, max(checkpoint_every,
+                                   config.CONVERGED_INTERVAL))
+        next_ckpt = checkpoint_every if checkpoint_every > 0 else None
 
         if self._mixed:
             data1 = dataclasses.replace(
@@ -327,10 +391,14 @@ class Workspace:
         iteration = self._iteration
         try:
             for phase_idx, data in enumerate(phases):
-                if phase_idx > 0:
+                if phase_idx < first_phase:
+                    continue
+                if phase_idx > first_phase:
                     st, iteration = self._enter_polish_phase(st)
                     if iteration is None:
                         break
+                elif phase_idx > 0:     # resumed inside the polish phase
+                    iteration = self._polish_iteration
                 while (st.status == config.UNFINISHED
                        and st.iter < stg.max_iters):
                     if stg.time_limit_secs and (
@@ -338,22 +406,58 @@ class Workspace:
                         time_limit_reached = True
                         break
                     cap = min(st.iter + chunk, stg.max_iters)
-                    st = iteration.run(data, st, cap)
+                    st = iteration.run(data, st, cap, clock, tracer)
+                    if csv is not None:
+                        # the chunk's one read of its trace rows
+                        csv.write_rows(tracer.take(),
+                                       time.perf_counter() - t0)
+                    if (checkpoint_file and next_ckpt is not None
+                            and cap >= next_ckpt):
+                        from .io import save_state
+                        save_state(checkpoint_file, st, phase_idx)
+                        next_ckpt = cap + checkpoint_every
+                    if stg.verbose:
+                        self._print_progress(st, time.perf_counter() - t0)
                 if time_limit_reached:
                     break
         except KeyboardInterrupt:
             # scs_is_interrupted polling (src/ctrlc.c, scs.c:1400-1403)
             interrupted = True
+        finally:
+            if csv is not None:
+                csv.close()
 
         solution, info = self._finalize(st, time_limit_reached, interrupted)
         info.solve_time = (time.perf_counter() - t0) * 1e3
         info.setup_time = self.setup_time_ms
+        if stg.profile_phases:
+            self._fill_timers(info, clock)
         # persist the adapted scale and factor for later warm solves
         self.scale = float(st.scale)
         self.diag_r = st.diag_r
         self.derived = st.derived
         self.tot_cg_its = int(st.tot_cg_its)
+        if stg.verbose:
+            self._print_footer(info)
         return solution, info
+
+    def _fill_timers(self, info: Info, clock: PhaseClock) -> None:
+        """Info's phase timers (scs.h:230-243), measured by the solve's
+        PhaseClock, with or without the CSV trace. The matrix-cone and
+        spectral vector-cone averages are per-call times of `profile`
+        (the fused cone phase cannot split them)."""
+        info.lin_sys_time = clock.times["lin_ms"]
+        info.cone_time = clock.times["cone_ms"]
+        info.accel_time = clock.times["accel_ms"]
+        spec = self.spec
+        if spec.s or spec.cs or spec.d or spec.nuc_m or spec.sl_n:
+            if self._phase_ms is None:
+                self._phase_ms = self.profile(n_calls=5)
+            pm = self._phase_ms
+            if "mat_cone_ms" in pm:
+                info.ave_time_matrix_cone_proj = pm["mat_cone_ms"]
+            if "vec_cone_ms" in pm:
+                info.ave_time_vector_cone_proj = pm["vec_cone_ms"]
 
     def _enter_polish_phase(self, st: LoopState):
         """Decide whether the polish phase must run after the fast phase
@@ -392,6 +496,182 @@ class Workspace:
         g = iteration.update_work_cache(self.data, st.diag_r, derived)
         return dataclasses.replace(st, derived=derived, g=g,
                                    status=config.UNFINISHED), iteration
+
+    def profile(self, n_calls: int = 20) -> dict:
+        """Per-call costs of the phases SCS times (scs.h:230-236), each
+        measured standalone on this problem's shapes: the linear-system
+        solve, the cone projection and the Anderson apply, in ms per
+        call (host clock over n_calls calls after a first one, the device
+        synchronized before and after), plus the matrix and spectral
+        vector cones' (`_profile_spectral`). The JAX package's
+        `Workspace.profile`."""
+        stg, dtype, dev = self.stg, self.stg.dtype, self.device
+        n, m, l = self.n, self.m, self.l
+        rng = np.random.RandomState(0)
+
+        def rand(*shape):
+            return torch.as_tensor(rng.randn(*shape), dtype=dtype,
+                                   device=dev)
+
+        rhs, vy, v = rand(n + m), rand(m), rand(l)
+        it = self._iteration
+        mats, r_y = self._mats(), self.diag_r[n:n + m]
+        one = torch.ones((), dtype=dtype, device=dev)
+
+        def clock(fn, *args):
+            fn(*args)
+            synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(n_calls):
+                fn(*args)
+            synchronize(dev)
+            return (time.perf_counter() - t0) / n_calls * 1e3
+
+        aa0 = accel.aa_init(l, it.mem, dtype, dev)
+        out = {
+            "lin_sys_time_ms": clock(
+                lambda: self.backend.solve(mats, self.diag_r, self.derived,
+                                           rhs, None, 1e-9)),
+            "cone_time_ms": clock(
+                lambda: proj_dual_cone(vy, self.spec, self.data.cone, one,
+                                       r_y, exp_f32=it.exp32,
+                                       psd_f32=it.psd32)),
+            "accel_time_ms": clock(
+                lambda: accel.aa_apply(
+                    aa0, v, v, mem=it.mem, type1=stg.acceleration_type_1,
+                    regularization=stg.acceleration_regularization,
+                    relaxation=stg.acceleration_relaxation,
+                    gamma_f32=self._mixed)),
+        }
+        out.update(self._profile_spectral(clock, rand))
+        return out
+
+    def _profile_spectral(self, clock, rand) -> dict:
+        """SPECTRAL_TIMING (cones.c:1345-1489, scs.h:237-243): per-call ms
+        of the matrix-cone projections (PSD, complex PSD, logdet,
+        nuclear, sum-of-k-largest) and of the spectral vector-cone
+        projections (the logarithmic cone's Newton, ell1, the sorted
+        sum-of-k-largest), each run of equal cones timed standalone on
+        its segment shapes (the JAX package's `_profile_spectral`)."""
+        from .cones import psd as psd_mod
+        from .cones import spectral as sp
+        from .cones.project import _contiguous_runs
+
+        spec, f32 = self.spec, self._iteration.psd32
+        mat_ms = vec_ms = 0.0
+        has_mat = has_vec = False
+        for sizes, fn, width in (
+                (spec.s, psd_mod.proj_psd_batch, lambda z: z * (z + 1) // 2),
+                (spec.cs, psd_mod.proj_cpsd_batch, lambda z: z * z)):
+            for sz, ct in _contiguous_runs(sizes):
+                if sz:
+                    has_mat = True
+                    mat_ms += clock(functools.partial(fn, ns=sz, f32_eig=f32),
+                                    rand(ct, width(sz)))
+        for di, ct in _contiguous_runs(spec.d):
+            has_mat = has_vec = True
+            mat_ms += clock(functools.partial(sp.proj_logdet_batch, ns=di,
+                                              f32_eig=f32),
+                            rand(ct, di * (di + 1) // 2 + 2))
+            vec_ms += clock(sp.log_cone_newton, rand(ct),
+                            torch.abs(rand(ct)) + 1.0, rand(ct, di))
+        for (mi, ni), ct in _contiguous_runs(list(zip(spec.nuc_m,
+                                                      spec.nuc_n))):
+            has_mat = has_vec = True
+            mat_ms += clock(functools.partial(sp.proj_nuclear, m=mi, n=ni,
+                                              f32_eig=f32),
+                            rand(ct, mi * ni + 1))
+            vec_ms += clock(sp.proj_ell1, rand(ct, min(mi, ni) + 1))
+        for (si, ki), ct in _contiguous_runs(list(zip(spec.sl_n,
+                                                      spec.sl_k))):
+            has_mat = has_vec = True
+            mat_ms += clock(functools.partial(sp.proj_sum_largest_evals,
+                                              ns=si, k=ki, f32_eig=f32),
+                            rand(ct, si * (si + 1) // 2 + 1))
+            r = rand(ct, si + 1)
+            vec_ms += clock(functools.partial(sp.proj_sum_largest_sorted,
+                                              k=ki),
+                            r[:, 0], torch.sort(r[:, 1:], descending=True,
+                                                dim=-1).values)
+        out = {}
+        if has_mat:
+            out["mat_cone_ms"] = mat_ms
+        if has_vec:
+            out["vec_cone_ms"] = vec_ms
+        return out
+
+    def _print_header(self) -> None:
+        """The init banner (print_init_header, scs.c:123-177; the JAX
+        package's table), naming the device the solve runs on."""
+        stg, spec = self.stg, self.spec
+        where = (torch.cuda.get_device_name(self.device)
+                 if self.device.type == "cuda" else "the CPU")
+        bar = "-" * 71
+        print(bar)
+        print(f"          scs_tpu_torch v{config.VERSION} - splitting conic "
+              f"solver on {where}")
+        print(bar)
+        print(f"problem:  variables n: {self.n}, constraints m: {self.m}")
+        parts = []
+        if spec.z:
+            parts.append(f"z (zero): {spec.z}")
+        if spec.l:
+            parts.append(f"l (linear): {spec.l}")
+        if spec.bsize:
+            parts.append(f"b (box): {spec.bsize}")
+        if spec.q:
+            parts.append(f"q (soc): {sum(spec.q)} in {len(spec.q)} cones")
+        if spec.s:
+            parts.append(f"s (psd): {sum(x * (x + 1) // 2 for x in spec.s)}"
+                         f" in {len(spec.s)} cones")
+        if spec.cs:
+            parts.append(f"cs (complex psd): {sum(x * x for x in spec.cs)}"
+                         f" in {len(spec.cs)} cones")
+        if spec.ep or spec.ed:
+            parts.append(f"e (exp): {3 * (spec.ep + spec.ed)}")
+        if spec.p:
+            parts.append(f"p (power): {3 * len(spec.p)}")
+        for extra, label in ((spec.d, "d (logdet)"), (spec.ell1, "ell1"),
+                             (spec.nuc_m, "nuc"), (spec.sl_n, "sl")):
+            if extra:
+                parts.append(f"{label}: {len(extra)} cones")
+        print("cones:    " + "; ".join(parts))
+        print(f"settings: eps_abs: {stg.eps_abs:.1e}, eps_rel: "
+              f"{stg.eps_rel:.1e}, eps_infeas: {stg.eps_infeas:.1e}")
+        print(f"          alpha: {stg.alpha:.2f}, scale: {stg.scale:.2e}, "
+              f"adaptive_scale: {int(stg.adaptive_scale)}")
+        print(f"          max_iters: {stg.max_iters}, normalize: "
+              f"{int(stg.normalize)}, rho_x: {stg.rho_x:.2e}")
+        print(f"          acceleration_lookback: {stg.acceleration_lookback},"
+              f" acceleration_interval: {stg.acceleration_interval}")
+        print(f"lin-sys:  {self.backend.METHOD_NAME} (dtype "
+              f"{str(stg.dtype).replace('torch.', '')})")
+        print(bar)
+        print(" iter | pri res | dua res |   gap   | pri obj |  scale  |"
+              " time (s)")
+        print(bar)
+
+    def _print_progress(self, st: LoopState, elapsed_s: float) -> None:
+        """A progress row (print_summary, scs.c:198-235), its values in
+        one read of the device."""
+        r = st.res
+        rp, rd, gap, pobj, scale = torch.stack([
+            t.to(torch.float64) for t in (r.res_pri, r.res_dual, r.gap,
+                                          r.pobj, st.scale)]).tolist()
+        print(f"{st.iter:6d}| {rp:.2e} {rd:.2e} {gap:.2e} {pobj: .2e} "
+              f"{scale:.2e} {elapsed_s:.2e}")
+
+    def _print_footer(self, info: Info) -> None:
+        """The exit summary (print_footer, scs.c:237-274)."""
+        bar = "-" * 71
+        print(bar)
+        print(f"status:  {info.status}")
+        print(f"timings: total: {(info.setup_time + info.solve_time) / 1e3:.2e}s"
+              f" = setup: {info.setup_time / 1e3:.2e}s"
+              f" + solve: {info.solve_time / 1e3:.2e}s")
+        if info.status_val in (config.SOLVED, config.SOLVED_INACCURATE):
+            print(f"objective = {info.pobj:.6f}")
+        print(bar)
 
     def _finalize(self, st: LoopState, time_limit_reached: bool,
                   interrupted: bool = False) -> tuple[Solution, Info]:

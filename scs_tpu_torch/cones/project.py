@@ -165,12 +165,16 @@ def proj_cone(x: torch.Tensor, spec: ConeSpec,
               cone_data: Optional[ConeData] = None,
               box_t_warm: Optional[torch.Tensor] = None,
               r_y: Optional[torch.Tensor] = None, exp_f32: bool = False,
-              psd_f32: bool = False):
+              psd_f32: bool = False,
+              psd_warm: Optional[torch.Tensor] = None, psd_rank: int = 0):
     """Project x (m,) or each row of x (B, m) onto the primal cone K (in
     the r_y-inverse metric for the box). Returns (projection, new box
     warm start); box_t_warm (or (B,)) defaults to 1 and passes through
     where there is no box. `psd_f32`: the PSD and complex-PSD blocks'
-    eigh and reconstruction in float32 (the mixed fast phase's)."""
+    eigh and reconstruction in float32 (the mixed fast phase's).
+    `psd_warm` (x's layout) carries the previous iteration's inner
+    projection for the tracked-rank PSD path (`psd_rank` > 0,
+    `cones/psd.py`)."""
     lay = ConeLayout.make(spec)
     if x.shape[-1] != lay.total:
         raise ValueError(f"x has {x.shape[-1]} rows, the cones {lay.total}")
@@ -217,7 +221,11 @@ def proj_cone(x: torch.Tensor, spec: ConeSpec,
             width = ns * ns if cplx else ns * (ns + 1) // 2
             if width:
                 seg = x[..., off:off + width * ct].reshape(lead + (ct, width))
-                parts.append(fn(seg, ns, f32_eig=psd_f32)
+                wseg = (None if psd_warm is None else
+                        psd_warm[..., off:off + width * ct]
+                        .reshape(lead + (ct, width)))
+                parts.append(fn(seg, ns, f32_eig=psd_f32, warm=wseg,
+                                psd_rank=psd_rank)
                              .reshape(lead + (width * ct,)))
             off += width * ct
     # exp in float32 only where exp_f32 asks for it on a float64 x
@@ -256,17 +264,21 @@ def proj_dual_cone(x: torch.Tensor, spec: ConeSpec,
                    cone_data: Optional[ConeData],
                    box_t_warm: Optional[torch.Tensor],
                    r_y: Optional[torch.Tensor], exp_f32: bool = False,
-                   psd_f32: bool = False):
+                   psd_f32: bool = False,
+                   psd_warm: Optional[torch.Tensor] = None,
+                   psd_rank: int = 0):
     """Moreau decomposition under the diagonal R metric (cones.c:1552-1596):
 
         Pi_C^R(x) = x + R^{-1} Pi_{C*}^{R^{-1}}(-R x)
 
     x (m,) with r_y (m,), or x (B, m) with each problem's r_y (B, m).
-    Returns (projection, new box warm start).
+    `psd_warm`: the previous inner projection Pi_{C*}(-R x) (the carried
+    rsk rows) for the tracked-rank PSD path. Returns (projection, new box
+    warm start).
     """
     xr = -x if r_y is None else -x * r_y
     proj, new_warm = proj_cone(xr, spec, cone_data, box_t_warm, r_y,
-                               exp_f32, psd_f32)
+                               exp_f32, psd_f32, psd_warm, psd_rank)
     out = proj + x if r_y is None else proj / r_y + x
     return out, new_warm
 

@@ -18,19 +18,38 @@ to the input's dtype, as the JAX package's fast phase does.
 
 Every function takes any leading axes: v (..., tri) for one block or
 (..., k, tri) for k blocks of one size (k blocks of B lanes: (B, k, tri)).
-Not ported: the TPU's accurate eigh (`eigh_ds`, `ozaki`) and the tracked-
-rank projection (`Settings.psd_rank`, ROADMAP item 13).
+Not ported: the TPU's accurate eigh (`eigh_ds`, `ozaki`), which the card
+does not need (cuSOLVER's float64 eigh is LAPACK-grade).
+
+Tracked rank (`Settings.psd_rank`, the JAX package's `_tracked_or_exact`):
+given the previous iteration's projection as `warm`, the certificate-gated
+subspace projection of `ops/subspace.py` replaces the eigh wherever its
+gate passes. The gate is decided per problem: over the blocks of one run
+for one problem, and lane by lane for a batch (the JAX package's vmap runs
+both branches and selects per lane). The host reads the gate once per
+call; the exact eigh then runs for the failing lanes only, gathered and
+scattered back in ascending lane order, so the card repeats a batch bit
+for bit.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..ops import subspace
+
 _SQRT2 = math.sqrt(2.0)
+
+# tracked-rank gate decisions since the counts were last set to 0: one a
+# problem (a lane of a batch) and run of equal blocks, and those that
+# passed the certificate (the rest took the exact eigh)
+gate_checks = 0
+gate_passes = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,17 +113,60 @@ def _clip_rebuild(M: torch.Tensor) -> torch.Tensor:
     return Vw @ V.transpose(-1, -2).conj()
 
 
-def proj_psd_batch(v: torch.Tensor, ns: int,
-                   f32_eig: bool = False) -> torch.Tensor:
+def _exact(M: torch.Tensor, f32_eig: bool, dtype) -> torch.Tensor:
+    """The exact projection of the symmetric or Hermitian M (..., n, n),
+    its eigh and rebuild in float32 with `f32_eig`, the result in dtype."""
+    return _clip_rebuild(M.to(torch.float32) if f32_eig else M).to(dtype)
+
+
+def _tracked_or_exact(M: torch.Tensor, warm: torch.Tensor, rank: int,
+                      f32_eig: bool) -> torch.Tensor:
+    """Project the symmetric M (..., ct, n, n) from the previous
+    projection `warm` (same shape): the subspace projection of rank `rank`
+    where every block of a problem passes its certificate, the exact eigh
+    for the problems (all leading indices but the block axis) where one
+    does not. Gate tolerance: 1e-6 (1 + ||M||_F) with float32 eig (the
+    fast phase floors at ~1e-5 true residuals), 1e-9 (1 + ||M||_F)
+    otherwise (certificate-grade projections for eps_infeas = 1e-7)."""
+    global gate_checks, gate_passes
+    dtype = M.dtype
+    rel = 1e-6 if f32_eig else 1e-9
+    Mw, Pw = ((M.to(torch.float32), warm.to(torch.float32)) if f32_eig
+              else (M, warm))
+    tol = rel * (1.0 + torch.linalg.matrix_norm(Mw))
+    sub, ok = subspace.psd_project_warm(Mw, Pw, rank, tol)
+    # the projection's one host read of the gate
+    good = ok.all(-1).cpu()
+    gate_checks += good.numel()
+    gate_passes += int(good.sum())
+    if good.dim() == 0:
+        return sub.to(dtype) if bool(good) else _exact(M, f32_eig, dtype)
+    bad = torch.nonzero(~good).flatten()
+    out = sub.to(dtype)
+    if bad.numel():
+        idx = bad.to(M.device)
+        out = out.index_put((idx,), _exact(M.index_select(0, idx), f32_eig,
+                                           dtype))
+    return out
+
+
+def proj_psd_batch(v: torch.Tensor, ns: int, f32_eig: bool = False,
+                   warm: Optional[torch.Tensor] = None,
+                   psd_rank: int = 0) -> torch.Tensor:
     """Project packed vectors v (..., tri) onto the PSD cone of dimension
     ns: one batched eigh over every leading index. `f32_eig`: the eigh and
-    the reconstruction in float32, the result in v's dtype."""
+    the reconstruction in float32, the result in v's dtype. With psd_rank
+    > 0, 2 psd_rank < ns and `warm` (the previous projection, packed like
+    v, with a block axis: (..., ct, tri)), the tracked-rank projection of
+    `_tracked_or_exact` instead."""
     if ns == 1:
         return torch.clamp_min(v, 0.0)
     M = svec_to_mat(v, ns)
-    if f32_eig:
-        M = M.to(torch.float32)
-    return mat_to_svec(_clip_rebuild(M).to(v.dtype), ns)
+    if psd_rank and warm is not None and 2 * psd_rank < ns:
+        Mp = _tracked_or_exact(M, svec_to_mat(warm, ns), psd_rank, f32_eig)
+    else:
+        Mp = _exact(M, f32_eig, v.dtype)
+    return mat_to_svec(Mp, ns)
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,22 +235,43 @@ def _cplx_tensors(ns: int, device: torch.device):
             t(flat[perm], torch.int64), t(scale[perm], torch.float64))
 
 
-def proj_cpsd_batch(v: torch.Tensor, ns: int,
-                    f32_eig: bool = False) -> torch.Tensor:
+def proj_cpsd_batch(v: torch.Tensor, ns: int, f32_eig: bool = False,
+                    warm: Optional[torch.Tensor] = None,
+                    psd_rank: int = 0) -> torch.Tensor:
     """Project real-packed vectors v (..., ns^2) onto the complex PSD cone
     of dimension ns through the native ns x ns Hermitian eigh (complex128,
     or complex64 with `f32_eig`), on either device; the result in v's
-    dtype."""
+    dtype. With psd_rank > 0, 2 psd_rank < ns and `warm` ((..., ct,
+    ns^2)), the tracked-rank projection of the real embedding
+    E = [Re, -Im; Im, Re] (2 ns x 2 ns; every Hermitian eigenvalue
+    doubles in it, so the tracked rank is 2 psd_rank), its exact fallback
+    an eigh of E, as in the JAX package."""
     if ns == 1:
         return torch.clamp_min(v, 0.0)
     r_idx, r_scale, i_idx, i_scale, flat, scale = _cplx_tensors(ns, v.device)
-    vp = torch.cat([v, v.new_zeros(v.shape[:-1] + (1,))], dim=-1)
-    Re = vp[..., r_idx] * r_scale.to(v.dtype)
-    Im = vp[..., i_idx] * i_scale.to(v.dtype)
+
+    def parts(t):
+        tp = torch.cat([t, t.new_zeros(t.shape[:-1] + (1,))], dim=-1)
+        return (tp[..., r_idx] * r_scale.to(t.dtype),
+                tp[..., i_idx] * i_scale.to(t.dtype))
+
+    def pack(Re_p, Im_p):
+        st = torch.cat([Re_p.reshape(Re_p.shape[:-2] + (ns * ns,)),
+                        Im_p.reshape(Im_p.shape[:-2] + (ns * ns,))],
+                       dim=-1).to(v.dtype)
+        return st[..., flat] * scale.to(v.dtype)
+
+    Re, Im = parts(v)
+    if psd_rank and warm is not None and 2 * psd_rank < ns:
+        def embed(Re_, Im_):
+            return torch.cat([torch.cat([Re_, -Im_], dim=-1),
+                              torch.cat([Im_, Re_], dim=-1)], dim=-2)
+
+        Ep = _tracked_or_exact(embed(Re, Im), embed(*parts(warm)),
+                               2 * psd_rank, f32_eig)
+        return pack(0.5 * (Ep[..., :ns, :ns] + Ep[..., ns:, ns:]),
+                    0.5 * (Ep[..., ns:, :ns] - Ep[..., :ns, ns:]))
     if f32_eig:
         Re, Im = Re.to(torch.float32), Im.to(torch.float32)
     Mp = _clip_rebuild(torch.complex(Re, Im))
-    parts = torch.cat([Mp.real.reshape(Mp.shape[:-2] + (ns * ns,)),
-                       Mp.imag.reshape(Mp.shape[:-2] + (ns * ns,))],
-                      dim=-1).to(v.dtype)
-    return parts[..., flat] * scale.to(v.dtype)
+    return pack(Mp.real, Mp.imag)

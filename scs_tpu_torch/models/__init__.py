@@ -1,5 +1,6 @@
 from .generators import (PlantedProblem, gen_infeasible, gen_planted,
                          gen_unbounded)
+from .lowrank_sdp import planted_lowrank_sdp
 
 __all__ = ["PlantedProblem", "gen_planted", "gen_infeasible",
-           "gen_unbounded"]
+           "gen_unbounded", "planted_lowrank_sdp"]

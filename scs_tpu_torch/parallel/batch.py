@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..api import _not_ported, _resolve_device
+from ..api import _resolve_device
 from ..cones.box import scale_box_bounds
 from ..equilibrate import (equilibrate_batched, identity_scaling_batched,
                            normalize_b_c_batched, normalize_xys_batched,
@@ -86,9 +86,11 @@ class SolveResult:
 
 
 def _check(spec: ConeSpec, stg: Settings) -> None:
-    """Raise for what the batched solvers do not run (yet)."""
+    """Raise for a linear-system backend the batched solvers do not know.
+    As in the JAX package, they take `psd_rank` (the tracked-rank gate is
+    decided lane by lane) and leave the single-problem extras (verbose,
+    log_csv_filename, write_data_filename, profile_phases) aside."""
     get_backend(stg.linsys)
-    _not_ported(stg)
 
 
 def make_solver_parts(spec: ConeSpec, stg: Settings, *, device="cuda",

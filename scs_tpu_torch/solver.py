@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Optional
 
 import torch
@@ -405,10 +406,16 @@ class Iteration:
         m, n = data.A.shape
         l = n + m + 1
         u_pre = 2.0 * u_t - st.v
+        # the tracked-rank PSD path's warm range is the previous inner
+        # projection, the carried rsk rows (rsk = R (v + u - 2 u_t) with
+        # the v the projection consumed; v_prev is overwritten with the
+        # current v before this point); the scale remap keeps rsk
+        psd_warm = st.rsk[n:n + m] if self.stg.psd_rank > 0 else None
         y_proj, box_t = proj_dual_cone(u_pre[n:n + m], self.spec, data.cone,
                                        st.box_t_warm, st.diag_r[n:n + m],
                                        exp_f32=self.exp32,
-                                       psd_f32=self.psd32)
+                                       psd_f32=self.psd32, psd_warm=psd_warm,
+                                       psd_rank=self.stg.psd_rank)
         if st.iter < config.FEASIBLE_ITERS:
             tau = torch.ones((), dtype=u_pre.dtype, device=u_pre.device)
         else:
@@ -478,33 +485,21 @@ class Iteration:
             accepted_accel=st.accepted_accel
             + (gate & ~rejected).to(torch.int64))
 
-    def step(self, data: ProblemData, st: LoopState) -> LoopState:
-        """One ADMM iteration; checked when iter % CONVERGED_INTERVAL == 0.
-        A checked step that terminates leaves iter and v as they were."""
-        i = st.iter
-        st = dataclasses.replace(st, aa_norm=torch.zeros_like(st.aa_norm))
-        aa_now = self.use_aa and i > 0 and i % self.stg.acceleration_interval == 0
-        if aa_now:
-            st = self._aa(st)
-
-        # 2. normalize v to L2 norm sqrt(l) (homogeneity; scs.c:813-821)
+    def _pre(self, st: LoopState) -> LoopState:
+        """Normalize v to L2 norm sqrt(l) (homogeneity; scs.c:813-821) and
+        snapshot it for the AA safeguard."""
         v = st.v
-        if i >= config.FEASIBLE_ITERS:
+        if st.iter >= config.FEASIBLE_ITERS:
             v = torch.where(_norm_2(v) > 0.0, renormalize_v(v), v)
-        # 3. snapshot for the AA safeguard
-        st = dataclasses.replace(st, v=v, v_prev=v)
-        # 4. linear system projection
-        u_t, cg_its = self._project_lin_sys(data, st)
-        # 5. cone projection
-        u, box_t = self._project_cones(data, st, u_t)
-        # 6. rsk = R (v + u - 2 u_t), before the dual update (scs.c:781-786)
-        rsk = (v + u - 2.0 * u_t) * st.diag_r
-        st = dataclasses.replace(st, u=u, u_t=u_t, rsk=rsk, box_t_warm=box_t,
-                                 tot_cg_its=st.tot_cg_its + cg_its)
+        return dataclasses.replace(st, v=v, v_prev=v)
 
+    def _post(self, data: ProblemData, st: LoopState) -> LoopState:
+        """Residuals, the convergence check and the scale update on a
+        checked step (a step that terminates stops here), then the dual
+        update v += alpha (u - u_t) (scs.c:788-793)."""
+        i = st.iter
         if i % config.CONVERGED_INTERVAL == 0:
-            # 7. residuals + convergence check, and the scale update
-            res = populate_residuals(data, self.spec, u, rsk, i,
+            res = populate_residuals(data, self.spec, st.u, st.rsk, i,
                                      use_ds=self.mixed)
             st = dataclasses.replace(st, res=res)
             flags = [has_converged(res, data)]
@@ -524,17 +519,247 @@ class Iteration:
                     st = dataclasses.replace(
                         st, sum_log_scale_factor=sum_log,
                         n_log_scale_factor=st.n_log_scale_factor + 1)
+        return dataclasses.replace(st, v=st.v + data.alpha * (st.u - st.u_t),
+                                   iter=i + 1)
 
-        # 8. dual update: v += alpha (u - u_t) (scs.c:788-793)
-        st = dataclasses.replace(st, v=st.v + data.alpha * (st.u - st.u_t),
-                                 iter=i + 1)
-        # 9. AA safeguard
+    def step(self, data: ProblemData, st: LoopState,
+             clock: Optional["PhaseClock"] = None) -> LoopState:
+        """One ADMM iteration; checked when iter % CONVERGED_INTERVAL == 0.
+        A checked step that terminates leaves iter and v as they were.
+        `clock` times the linear-system, cone and Anderson phases of the
+        step (`PhaseClock`); the step's arithmetic is the same with or
+        without it."""
+        timed = clock or _untimed
+        i = st.iter
+        st = dataclasses.replace(st, aa_norm=torch.zeros_like(st.aa_norm))
+        aa_now = self.use_aa and i > 0 and i % self.stg.acceleration_interval == 0
         if aa_now:
-            st = self._guard(st)
+            st = timed("accel_ms", self._aa, st)
+        st = self._pre(st)
+        u_t, cg_its = timed("lin_ms", self._project_lin_sys, data, st)
+        u, box_t = timed("cone_ms", self._project_cones, data, st, u_t)
+        # rsk = R (v + u - 2 u_t), before the dual update (scs.c:781-786)
+        rsk = (st.v + u - 2.0 * u_t) * st.diag_r
+        st = dataclasses.replace(st, u=u, u_t=u_t, rsk=rsk, box_t_warm=box_t,
+                                 tot_cg_its=st.tot_cg_its + cg_its)
+        st = self._post(data, st)
+        if aa_now and st.status == config.UNFINISHED:
+            st = timed("accel_ms", self._guard, st)
         return st
 
-    def run(self, data: ProblemData, st: LoopState, iter_cap: int):
-        """Iterate until termination or iter_cap (the JAX make_loop)."""
+    def run(self, data: ProblemData, st: LoopState, iter_cap: int,
+            clock: Optional["PhaseClock"] = None,
+            tracer: Optional["Tracer"] = None):
+        """Iterate until termination or iter_cap (the JAX make_loop).
+        `clock` times the phases of every step; `tracer` records a trace
+        row after every step."""
         while st.status == config.UNFINISHED and st.iter < iter_cap:
-            st = self.step(data, st)
+            st = self.step(data, st, clock)
+            if tracer is not None:
+                tracer.record(data, st)
         return st
+
+
+def _untimed(key, fn, *args):
+    return fn(*args)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the
+    CPU, whose operators return when done)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class PhaseClock:
+    """Measured per-phase timers (`Settings.profile_phases`; scs.c:1380-
+    1393 wraps a timer around each phase call): the host clock around each
+    linear-system, cone and Anderson phase of a step, with the device
+    synchronized before and after the phase on the card (on the CPU the
+    operators return when done), accumulated in milliseconds in `times`.
+    The synchronizations cost a profiled solve time; its trajectory is the
+    plain solve's (the JAX `make_instrumented_runner`)."""
+
+    def __init__(self, device: torch.device):
+        self.times = {"lin_ms": 0.0, "cone_ms": 0.0, "accel_ms": 0.0}
+        self.device = device
+
+    def __call__(self, key: str, fn, *args):
+        synchronize(self.device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        synchronize(self.device)
+        self.times[key] += (time.perf_counter() - t0) * 1e3
+        return out
+
+
+# ---------------------------------------------------------------------------
+# the per-iteration trace (log_data_to_csv, rw.c:707-861)
+
+# The JAX package's column set (`scs_tpu/solver.py:1135-1160`): the
+# original-space and the normalized-space residual families, iterate norms,
+# objective terms, Anderson and scale diagnostics, and the KKT residuals of
+# the first logdet cone's projection (rw.c:854-859; NaN without one).
+TRACE_COLUMNS = (
+    "iter", "res_pri", "res_dual", "gap",
+    "x_nrm_inf", "y_nrm_inf", "s_nrm_inf",
+    "x_nrm_2", "y_nrm_2", "s_nrm_2",
+    "x_nrm_inf_normalized", "y_nrm_inf_normalized", "s_nrm_inf_normalized",
+    "x_nrm_2_normalized", "y_nrm_2_normalized", "s_nrm_2_normalized",
+    "ax_s_btau_nrm_inf", "px_aty_ctau_nrm_inf",
+    "ax_s_btau_nrm_2", "px_aty_ctau_nrm_2",
+    "res_infeas", "res_unbdd_a", "res_unbdd_p",
+    "pobj", "dobj", "tau", "kap",
+    "res_pri_normalized", "res_dual_normalized", "gap_normalized",
+    "ax_s_btau_nrm_inf_normalized", "px_aty_ctau_nrm_inf_normalized",
+    "ax_s_btau_nrm_2_normalized", "px_aty_ctau_nrm_2_normalized",
+    "res_infeas_normalized", "res_unbdd_a_normalized",
+    "res_unbdd_p_normalized", "pobj_normalized", "dobj_normalized",
+    "tau_normalized", "kap_normalized",
+    "ax_nrm_inf", "ax_s_nrm_inf", "px_nrm_inf", "aty_nrm_inf",
+    "xt_p_x", "xt_p_x_tau", "ctx", "ctx_tau", "bty", "bty_tau",
+    "b_nrm_inf", "c_nrm_inf", "scale",
+    "diff_u_ut_nrm_2", "diff_v_v_prev_nrm_2",
+    "diff_u_ut_nrm_inf", "diff_v_v_prev_nrm_inf",
+    "aa_norm", "accepted_accel_steps", "rejected_accel_steps",
+    "tot_cg_its", "scale_updates",
+    "res_dual_spectral", "res_pri_spectral", "comp_spectral",
+)
+_SPECTRAL_COLUMNS = 3
+
+
+def trace_row(data: ProblemData, spec: ConeSpec,
+              st: LoopState) -> torch.Tensor:
+    """The trace values of the current state but the spectral columns, as
+    one (len(TRACE_COLUMNS) - 3,) tensor on the state's device (the JAX
+    `trace_row`); no host read."""
+    from .equilibrate import unnormalize_xys
+
+    m, n = data.A.shape
+    dtype, dev = st.u.dtype, st.u.device
+    u, rsk = st.u, st.rsk
+    x_n, y_n, s_n = u[:n], u[n:n + m], rsk[n:n + m]
+    tau = torch.abs(u[n + m])
+    kap = torch.abs(rsk[n + m])
+    r = populate_residuals(data, spec, u, rsk, st.iter)
+
+    # normalized-space quantities
+    ax = data.A @ x_n
+    ax_s = ax + s_n
+    ax_s_btau = ax_s - tau * data.b
+    if data.P is not None:
+        px = data.P @ x_n
+        xt_p_x_tau_nm = _dot(px, x_n)
+    else:
+        px = torch.zeros(n, dtype=dtype, device=dev)
+        xt_p_x_tau_nm = torch.zeros((), dtype=dtype, device=dev)
+    aty = data.A.T @ y_n
+    px_aty_ctau = px + aty + tau * data.c
+    bty_tau_nm = _dot(y_n, data.b)
+    ctx_tau_nm = _dot(x_n, data.c)
+    bty_nm = _safediv_pos(bty_tau_nm, tau)
+    ctx_nm = _safediv_pos(ctx_tau_nm, tau)
+    xpx_nm = _safediv_pos(xt_p_x_tau_nm, tau * tau)
+    tol = config.INFEAS_NEGATIVITY_TOL
+    res_unbdd_a_nm = torch.where(
+        ctx_tau_nm < -tol, _safediv_pos(_norm_inf(ax_s), -ctx_tau_nm),
+        math.nan)
+    res_unbdd_p_nm = torch.where(
+        ctx_tau_nm < -tol, _safediv_pos(_norm_inf(px), -ctx_tau_nm),
+        math.nan)
+    res_infeas_nm = torch.where(
+        bty_tau_nm < -tol, _safediv_pos(_norm_inf(aty), -bty_tau_nm),
+        math.nan)
+
+    # original-space iterates
+    x_o, y_o, s_o = unnormalize_xys(data.scal, x_n, y_n, s_n)
+    tau_d = torch.clamp_min(tau, config.DIV_EPS_TOL)
+    x_o, y_o, s_o = x_o / tau_d, y_o / tau_d, s_o / tau_d
+    fac_m = 1.0 / (data.scal.D * data.scal.dual_scale)
+    fac_n = 1.0 / (data.scal.E * data.scal.primal_scale)
+
+    def host(v):
+        return torch.full((), float(v), dtype=dtype, device=dev)
+
+    vals = [
+        host(st.iter), r.res_pri, r.res_dual, r.gap,
+        _norm_inf(x_o), _norm_inf(y_o), _norm_inf(s_o),
+        _norm_2(x_o), _norm_2(y_o), _norm_2(s_o),
+        _norm_inf(x_n), _norm_inf(y_n), _norm_inf(s_n),
+        _norm_2(x_n), _norm_2(y_n), _norm_2(s_n),
+        r.nm_ax_s_btau, r.nm_px_aty_ctau,
+        _norm_2(ax_s_btau * fac_m), _norm_2(px_aty_ctau * fac_n),
+        r.res_infeas, r.res_unbdd_a, r.res_unbdd_p,
+        r.pobj, r.dobj, r.tau, r.kap,
+        _safediv_pos(_norm_inf(ax_s_btau), tau),
+        _safediv_pos(_norm_inf(px_aty_ctau), tau),
+        torch.abs(xpx_nm + ctx_nm + bty_nm),
+        _norm_inf(ax_s_btau), _norm_inf(px_aty_ctau),
+        _norm_2(ax_s_btau), _norm_2(px_aty_ctau),
+        res_infeas_nm, res_unbdd_a_nm, res_unbdd_p_nm,
+        xpx_nm / 2.0 + ctx_nm, -xpx_nm / 2.0 - bty_nm,
+        tau, kap,
+        r.nm_ax, _norm_inf(ax_s * fac_m), r.nm_px, r.nm_aty,
+        r.xt_p_x, r.xt_p_x * (r.tau * r.tau), r.ctx, r.ctx_tau,
+        r.bty, r.bty_tau,
+        data.nm_b_orig, data.nm_c_orig, st.scale,
+        _norm_2(st.u - st.u_t), _norm_2(st.v - st.v_prev),
+        _norm_inf(st.u - st.u_t), _norm_inf(st.v - st.v_prev),
+        st.aa_norm, st.accepted_accel, st.rejected_accel,
+        st.tot_cg_its, host(st.scale_updates),
+    ]
+    return torch.stack([torch.as_tensor(v).to(dtype) for v in vals])
+
+
+class Tracer:
+    """Trace rows of the steps of one chunk, collected in preallocated
+    device buffers; `take()` reads them to the host in one transfer (the
+    JAX trace runner's ring buffer). With a logdet cone, each step also
+    keeps the input and output segments of the first logdet cone's last
+    projection (the inner projection's output is rsk_y, its input
+    rsk_y - R_y u_y), and `take()` computes the three spectral columns of
+    the chunk in one batched eigvalsh (`spectral.check_logdet_opt`)."""
+
+    def __init__(self, spec: ConeSpec, capacity: int, dtype, device):
+        self.spec = spec
+        self.rows = torch.empty((capacity, len(TRACE_COLUMNS)
+                                 - _SPECTRAL_COLUMNS), dtype=dtype,
+                                device=device)
+        self.count = 0
+        self.segs = None
+        if spec.d:
+            from .cones.project import ConeLayout
+            d0 = spec.d[0]
+            off = ConeLayout.make(spec).d_off
+            self._seg = slice(off, off + d0 * (d0 + 1) // 2 + 2)
+            self.segs = torch.empty((capacity, 2, self._seg.stop - off),
+                                    dtype=dtype, device=device)
+
+    def record(self, data: ProblemData, st: LoopState) -> None:
+        self.rows[self.count] = trace_row(data, self.spec, st)
+        if self.segs is not None:
+            m, n = data.A.shape
+            rsk_y = st.rsk[n:n + m]
+            seg_out = rsk_y[self._seg]
+            seg_in = (rsk_y - st.diag_r[n:n + m] * st.u[n:n + m])[self._seg]
+            self.segs[self.count] = torch.stack([seg_in, seg_out])
+        self.count += 1
+
+    def take(self):
+        """The chunk's rows (count, len(TRACE_COLUMNS)) as a numpy array;
+        the buffers are then empty again."""
+        k, self.count = self.count, 0
+        rows = self.rows[:k]
+        if self.segs is None:
+            spec_cols = torch.full((k, _SPECTRAL_COLUMNS), math.nan,
+                                   dtype=rows.dtype, device=rows.device)
+        else:
+            from .cones import spectral
+            from .cones.psd import svec_to_mat
+            d0 = self.spec.d[0]
+            seg = self.segs[:k] * spectral._SQRT2       # (k, 2, ln)
+            w = torch.linalg.eigvalsh(svec_to_mat(seg[:, :, 2:], d0))
+            spec_cols = torch.stack(spectral.check_logdet_opt(
+                seg[:, 1, 0], seg[:, 1, 1], w[:, 1], seg[:, 0, 0],
+                seg[:, 0, 1], w[:, 0]), dim=-1)
+        return torch.cat([rows, spec_cols], dim=1).cpu().numpy()

@@ -517,9 +517,13 @@ class BatchedIteration:
 
         # 5. cone projection
         u_pre = 2.0 * u_t - v
+        # tracked-rank PSD: each lane's warm range is its carried rsk rows
+        # (`solver.Iteration._project_cones`); the gate is per lane
         y_proj, box_t = proj_dual_cone_batched(
             u_pre[:, n:n + m], spec, data.cone, st.box_t_warm,
-            dr[:, n:n + m], exp_f32=self.exp32, psd_f32=self.psd32)
+            dr[:, n:n + m], exp_f32=self.exp32, psd_f32=self.psd32,
+            psd_warm=st.rsk[:, n:n + m] if stg.psd_rank > 0 else None,
+            psd_rank=stg.psd_rank)
         tau_c = torch.clamp_min(u_pre[:, l - 1], 0.0)
         if pin_dev is not None:
             tau_c = torch.where(pin_dev, 1.0, tau_c)

@@ -346,3 +346,30 @@ def test_port_imports_neither_jax_nor_scs_tpu():
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, (path, hits)
+
+
+def test_port_runs_without_jax_in_the_process():
+    """A fresh interpreter imports the package and every module of its
+    entry points, then solves a tiny problem on the CPU through the
+    compat layer: neither jax nor scs_tpu enters sys.modules."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, numpy as np\n"
+        "import scs_tpu_torch\n"
+        "from scs_tpu_torch import compat, io, run_from_file\n"
+        "from scs_tpu_torch.ops import subspace\n"
+        "from scs_tpu_torch.utils import native\n"
+        "from scs_tpu_torch.models import planted_lowrank_sdp\n"
+        "sol = compat.solve({'A': -np.eye(2), 'b': -np.ones(2),\n"
+        "                    'c': np.ones(2)}, {'l': 2}, verbose=False,\n"
+        "                   device='cpu')\n"
+        "assert sol['info']['status'] == 'solved'\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'scs_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, (out.stdout, out.stderr)
