@@ -120,6 +120,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      against the plain solve (the same bits; ms per iteration and host syncs per
      iteration; the CSV's rows and last row against Info, the timers
      against the solve time);
+ 16. differentiation and the multi-process runtime (`diff_phase`): 64
+     planted strictly complementary problems at the headline widths
+     (`models.planted_complementary`), an SOCP batch and a QP batch,
+     through `make_diff_solver` (the forward solve mixed, K2 counted):
+     the gradient of w'x against a central finite difference along a
+     random unit direction per lane (two pure float64 solves at eps
+     1e-12, warm-started), against the CPU's gradient on two lanes, and
+     forward mode's directional derivative against it (the adjoint
+     identity), with the forward and backward times, GMRES steps and VJP
+     evaluations; then the five examples of `scs_tpu_torch.examples`
+     (`EXAMPLE_COUNTS`), each with its asserts and wall time; these two
+     parts in a process of their own (`--batch-child diff`) started
+     after phase 10 and run beside phases 11-14; here, the box, exp and
+     power instances of tests/test_diff.py, card gradients against the
+     CPU's, and `graphs.run` raising under autograd; a one-rank NCCL
+     group: `make_sharded_batch_solver` on the first 64 lanes of the
+     headline batch against `make_batch_solver`;
   9. last, a profile of 25 iterations of the large SOCP, mixed, of 25
      batched steps of the headline batch's float32-state phase and of 25
      iterations of phase 14's full sparse instance, mixed
@@ -153,6 +170,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -164,6 +182,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from scs_tpu_torch import Settings, Workspace, accel, compat, config, \
     demo_sparse, io
@@ -172,9 +191,11 @@ from scs_tpu_torch.cones import exp as exp_cone
 from scs_tpu_torch.cones import graphs, project, psd, segments, soc, spectral
 from scs_tpu_torch.cones import power as power_cone
 from scs_tpu_torch.demo_socp import make_spec
+from scs_tpu_torch.diff import make_diff_solver
 from scs_tpu_torch.linsys import direct, indirect
 from scs_tpu_torch.models import gen_planted
 from scs_tpu_torch.models import mixed_cones, psd_cones, spectral_cones
+from scs_tpu_torch.models import diff_instances, planted_complementary
 from scs_tpu_torch.models import planted_lowrank_sdp
 from scs_tpu_torch.types import ConeData
 from scs_tpu_torch.ops import (_build, dsmatmul, dsmatvec, logdet, ozaki,
@@ -183,6 +204,7 @@ from scs_tpu_torch.parallel import (BatchWorkspace,
                                     make_chunked_batch_solver,
                                     make_solver_parts)
 from scs_tpu_torch.parallel import batch as batch_mod
+from scs_tpu_torch.parallel import multihost
 from scs_tpu_torch.solver_batched import BatchedIteration
 from scs_tpu_torch.types import ConeSpec
 from scs_tpu_torch.utils import native
@@ -1067,7 +1089,8 @@ def f32_batch_child(name: str) -> dict:
     float32 state) through solve_batch and its gates (objective within
     5e-3 of the planted optimum, SCS's termination test), with the
     spectral kernels' launches; numpy arrays as lists. "psd-rank" is
-    phase 15's batch instead (`psd_rank_batch`)."""
+    phase 15's batch instead (`psd_rank_batch`), "diff" phase 16 (a)
+    (`diff_headline`) and (d) (`examples_on_the_card`)."""
     torch.set_num_threads(1)
     parent = os.getppid()
 
@@ -1082,6 +1105,10 @@ def f32_batch_child(name: str) -> dict:
         runs = psd_rank_batch()
         return {"runs": {str(k): _as_json(v) for k, v in runs.items()},
                 "ended_at": time.time()}
+    if name == "diff":
+        out = {"socp": diff_headline(False), "qp": diff_headline(True)}
+        return dict(out, examples=examples_on_the_card(),
+                    ended_at=time.time())
     spec, batch, label = _f32_batch_case(name)
     logdet.launches = 0
     sumlargest.launches = 0
@@ -1119,8 +1146,8 @@ class BatchChild:
         lines = self.log.read().strip().splitlines()
         for line in lines[:-1]:
             print(f"[{self.name} process] {line}")
-        check(rc == 0 and lines, f"the {self.name} float32-state batch's "
-              f"process failed ({rc}): {lines[-1] if lines else ''}")
+        check(rc == 0 and lines, f"the {self.name} process failed ({rc}): "
+              f"{lines[-1] if lines else ''}")
         res = json.loads(lines[-1])
         print(f"[{self.name} process] its work ended "
               f"{res['ended_at'] - self.started_at:.1f} s after its start; "
@@ -2792,6 +2819,307 @@ def entry_phase(head_p, big_p, spec_big, child: "BatchChild",
     return res
 
 
+# ---- phase 16: differentiation and the multi-process runtime ----
+
+DIFF_LANES = 64
+# the forward solves of the gradients: eps 1e-9 (make_diff_solver's
+# default tolerance), direct, mixed (the card's default) with float64
+# state: with float32 state (the batched solvers' default fast phase) the
+# 64 lanes took 100045 lockstep steps and 671.5 s (measured on one H100),
+# the float32-state stragglers of PERF.md section 5
+DIFF_STG = Settings(linsys="direct", eps_abs=1e-9, eps_rel=1e-9,
+                    fast_f32=False)
+# the finite differences' solves: pure float64 at eps 1e-12, warm-started
+# from the gradient's solution, and a step of 1e-4. On a CPU run of the
+# headline family (a lane of condition ~400, |fd| 20) the error was
+# 2.2e-4, 3.0e-5 and 1.9e-4 at steps 1e-3, 1e-4 and 1e-5 (curvature, then
+# the solves' error over the step); at eps 1e-11 and a step of 3e-5 two
+# of 64 lanes on the card missed the gate by up to 2.9x (measured on one
+# H100), the solves' error over the step
+DIFF_FD_STG = Settings(linsys="direct", mixed_precision=False,
+                       eps_abs=1e-12, eps_rel=1e-12, max_iters=20000)
+DIFF_FD_STEP = 1e-4
+# the card's gradients against the CPU's on the same lanes, both from eps
+# 1e-9 forward solves (mixed on the card, pure float64 on the CPU): within
+# 1e-3 (1 + max |g|), the FD gate's scale
+DIFF_CPU_LANES = 2
+DIFF_CPU_TOL = 1e-3
+# the card's gradients through box, exp and power against the CPU's, both
+# solved to eps 1e-11: within 1e-6 (1 + max |g|)
+DIFF_CONE_TOL = 1e-6
+
+
+# the planted lanes' active systems have condition numbers at most this
+# (`planted_complementary`): the unbounded draws spread to ~24000, and
+# lanes above ~2000 moved off their face under the finite difference's
+# step (measured on one H100: 3 of 64 lanes, the worst |fd| 3082)
+DIFF_MAX_COND = 500
+
+
+def diff_batch(spec, B: int, seed0: int, with_P: bool):
+    """(A, b, c[, P]) of B planted strictly complementary problems of the
+    headline family (`models.planted_complementary`), on the card."""
+    probs = [planted_complementary(spec, 100, seed0 + i, with_P,
+                                   DIFF_MAX_COND) for i in range(B)]
+    keys = ("A", "b", "c") + (("P",) if with_P else ())
+    return [torch.stack([getattr(p, k) for p in probs]).cuda() for k in keys]
+
+
+def _unit_directions(args, seed: int, with_P: bool):
+    """One random direction per lane over every argument, of unit norm
+    per lane (P's part symmetric)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = [torch.randn(a.shape, generator=gen, dtype=a.dtype, device="cuda")
+         for a in args]
+    if with_P:
+        d[3] = 0.5 * (d[3] + d[3].transpose(1, 2))
+    nrm = torch.sqrt(sum((t * t).flatten(1).sum(1) for t in d))
+    return [t / nrm.view((-1,) + (1,) * (t.dim() - 1)) for t in d]
+
+
+def _fd_solve(args, with_P: bool, start):
+    """x of the batch `args` solved with DIFF_FD_STG through
+    BatchWorkspace, warm-started from `start` (x, y, s); every lane must
+    solve."""
+    A, b, c = args[:3]
+    ws = BatchWorkspace(HEADLINE, DIFF_FD_STG, A, args[3] if with_P else None,
+                        b, c)
+    res = ws.solve(warm_start=True, sol=start)
+    torch.cuda.synchronize()
+    check(bool((res.status == 1).all()), "diff: a finite-difference solve "
+          f"left {int((res.status != 1).sum())} lanes unsolved")
+    return res.x
+
+
+def diff_headline(with_P: bool) -> dict:
+    """Reverse and forward mode through DIFF_LANES planted problems at the
+    headline widths (phase 16 a): the gradient of sum over lanes of w'x,
+    held per lane to a central finite difference along a random unit
+    direction, to the CPU's gradient on DIFF_CPU_LANES lanes, and to the
+    forward mode's directional derivative (the adjoint identity)."""
+    label = "QP" if with_P else "SOCP"
+    head = HEADLINE
+    l = 100 + head.dims() + 1
+    args = diff_batch(head, DIFF_LANES, 0, with_P)
+    w = torch.as_tensor(np.random.RandomState(5).randn(100), device="cuda")
+    solve = make_diff_solver(head, DIFF_STG, has_P=with_P,
+                             gmres_restart=l)
+    ts = [a.clone().requires_grad_() for a in args]
+    torch.cuda.synchronize()
+    dsmatvec.batched_launches = 0
+    dsmatvec.pair_launches = 0
+    t0 = time.perf_counter()
+    x, y, s = solve(*ts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    k2, k3 = dsmatvec.batched_launches, dsmatvec.pair_launches
+    (x @ w).sum().backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    steps = solve.core.last_gmres_steps.numpy()
+    evals = solve.core.last_evals
+    grads = [t.grad for t in ts]
+    print(f"diff {label} B={DIFF_LANES} (n=100, m={head.dims()}, l={l}): "
+          f"forward solve {1e3 * (t1 - t0):.1f} ms (mixed, K2 launches {k2},"
+          f" K3 {k3}), backward {1e3 * (t2 - t1):.1f} ms, GMRES steps per "
+          f"lane min {steps.min()} median {int(np.median(steps))} max "
+          f"{steps.max()}, VJP evaluations {evals}")
+    check(k2 > 0, f"diff {label}: the forward solve launched no K2")
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          f"diff {label}: non-finite gradient")
+    check(bool(torch.isfinite(x).all()), f"diff {label}: non-finite x")
+
+    # per lane: central finite difference along a unit direction
+    d = _unit_directions(args, 9, with_P)
+    an = sum((g * t).flatten(1).sum(1) for g, t in zip(grads, d))
+    start = types.SimpleNamespace(x=x.detach(), y=y.detach(), s=s.detach())
+    t3 = time.perf_counter()
+    xp, xm = (_fd_solve([a + sign * DIFF_FD_STEP * t
+                         for a, t in zip(args, d)], with_P, start)
+              for sign in (1.0, -1.0))
+    fd = ((xp - xm) @ w) / (2 * DIFF_FD_STEP)
+    err = (an - fd).abs()
+    gate = 5e-5 + 5e-4 * fd.abs().clamp_min(1.0)
+    worst = int(torch.argmax(err / gate))
+    print(f"diff {label}: finite differences (two pure-f64 eps 1e-12 solves"
+          f" warm from the solution, {time.perf_counter() - t3:.1f} s): "
+          f"per-lane |<g, d> - fd| max "
+          f"{float(err.max()):.3e}, worst share of its gate "
+          f"{float((err / gate)[worst]):.3f} (lane {worst}, fd "
+          f"{float(fd[worst]):.4f})")
+    check(bool((err <= gate).all()),
+          f"diff {label}: {int((err > gate).sum())} lanes fail the finite "
+          f"difference gate 5e-5 + 5e-4 max(|fd|, 1)")
+
+    # the CPU's gradients on the first lanes
+    cpu = make_diff_solver(head, DIFF_STG, has_P=with_P, gmres_restart=l,
+                           device="cpu")
+    tc = [a[:DIFF_CPU_LANES].cpu().clone().requires_grad_() for a in args]
+    t4 = time.perf_counter()
+    (cpu(*tc)[0] @ w.cpu()).sum().backward()
+    cpu_s = time.perf_counter() - t4
+    rel = max(float((g[:DIFF_CPU_LANES].cpu() - t.grad).abs().max())
+              / (1 + float(t.grad.abs().max())) for g, t in zip(grads, tc))
+    print(f"diff {label}: card against CPU gradients on {DIFF_CPU_LANES} "
+          f"lanes, max |diff| / (1 + max |g|) {rel:.3e} (gate "
+          f"{DIFF_CPU_TOL:.0e}; CPU {cpu_s:.1f} s)")
+    check(rel <= DIFF_CPU_TOL, f"diff {label}: card and CPU gradients "
+          f"differ by {rel:.2e}")
+
+    # forward mode: <w, J d> against <J^T w, d>, lane by lane
+    t5 = time.perf_counter()
+    with fwAD.dual_level():
+        out = solve(*[fwAD.make_dual(a, t) for a, t in zip(args, d)],
+                    mode="jvp")
+        dx = fwAD.unpack_dual(out[0]).tangent
+    torch.cuda.synchronize()
+    jvp_ms = 1e3 * (time.perf_counter() - t5)
+    jsteps = solve.core.last_gmres_steps.numpy()
+    fwd = dx @ w
+    adj = (fwd - an).abs() / (1 + fwd.abs())
+    print(f"diff {label}: forward mode (solve + GMRES) {jvp_ms:.1f} ms, "
+          f"GMRES steps per lane median {int(np.median(jsteps))} max "
+          f"{jsteps.max()}, JVP evaluations {solve.core.last_evals}; "
+          f"adjoint |<w, J d> - <J'w, d>| / (1 + |<w, J d>|) max "
+          f"{float(adj.max()):.3e}")
+    check(bool((adj <= 1e-8).all()), f"diff {label}: adjoint identity off "
+          f"by {float(adj.max()):.2e} > 1e-8")
+    return {"forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1),
+            "gmres_median": int(np.median(steps)),
+            "gmres_max": int(steps.max()), "evals": evals, "k2": k2,
+            "fd_err": float(err.max()), "cpu_rel": rel, "jvp_ms": jvp_ms,
+            "adjoint": float(adj.max())}
+
+
+def diff_small_cones() -> dict:
+    """Phase 16 b: tests/test_diff.py's box, exp and power instances,
+    gradients on the card against the CPU's (the projections run eagerly
+    under autograd, cones.graphs.eager); graphs.run raises where autograd
+    would record through a replay."""
+    stg = Settings(linsys="direct", eps_abs=1e-11, eps_rel=1e-11)
+    cases = {}
+    for name, inst in (("exp", diff_instances.exp_instance()),
+                       ("power", diff_instances.power_instance()),
+                       ("box", diff_instances.box_instance())):
+        spec, prob = inst[:2]
+        raw = [prob.A, prob.b, prob.c] + list(inst[2:])
+        w = torch.as_tensor(np.random.RandomState(5).randn(prob.A.shape[1]))
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            solve = make_diff_solver(spec, stg, device=dev)
+            ts = [t.to(dev).clone().requires_grad_() for t in raw]
+            graphs.replays = 0
+            (solve(*ts)[0] @ w.to(dev)).backward()
+            grads[dev] = [t.grad.cpu() for t in ts]
+        rel = max(float((g - c).abs().max()) / (1 + float(c.abs().max()))
+                  for g, c in zip(grads["cuda"], grads["cpu"]))
+        print(f"diff {name}: card against CPU gradients max |diff| / "
+              f"(1 + max |g|) {rel:.3e} (gate {DIFF_CONE_TOL:.0e}), "
+              f"|d/db| max {float(grads['cpu'][1].abs().max()):.3e}")
+        check(rel <= DIFF_CONE_TOL, f"diff {name}: card and CPU gradients "
+              f"differ by {rel:.2e}")
+        cases[name] = rel
+    seg = torch.randn(4, 2, 3, dtype=torch.float64, device="cuda",
+                      requires_grad=True)
+    mask = torch.tensor([True, False], device="cuda")
+    try:
+        graphs.run(exp_cone.proj_exp_batch, (seg, mask))
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised, "graphs.run did not raise under autograd")
+    with torch.no_grad():
+        graphs.run(exp_cone.proj_exp_batch, (seg, mask))
+    print("graphs.run under autograd with an input that requires grad: "
+          "raises; under no_grad: replays")
+    return cases
+
+
+def nccl_one_rank(lanes) -> dict:
+    """Phase 16 c: a one-rank NCCL group on the card, the global mesh and
+    make_sharded_batch_solver on 64 lanes of the headline batch, against
+    make_batch_solver on the same lanes."""
+    import torch.distributed as dist
+    A, b, c = lanes[:3]
+    B = A.shape[0]
+    bu = bl = torch.zeros(B, 0, dtype=A.dtype, device="cuda")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    # float64 state: with float32 state a few of the first 64 lanes take
+    # tens of thousands of iterations (phase 6's note)
+    stg = Settings(linsys="direct", chunk_iters=250, fast_f32=False)
+    try:
+        multihost.init_distributed(f"127.0.0.1:{port}", 1, 0,
+                                   backend="nccl")
+        check(dist.get_backend() == "nccl", "the process group is not NCCL")
+        mesh = multihost.make_global_mesh()
+        t0 = time.perf_counter()
+        sharded = multihost.make_sharded_batch_solver(HEADLINE, stg, mesh)(
+            A, b, c, bu, bl)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    ref = batch_mod.make_batch_solver(HEADLINE, stg)(A, b, c, bu, bl)
+    same_status = bool(torch.equal(sharded.status, ref.status))
+    diff = float(((sharded.pobj - ref.pobj).abs()
+                  / (1 + ref.pobj.abs())).max())
+    print(f"NCCL one-rank group: make_sharded_batch_solver on {B} lanes in "
+          f"{1e3 * (t1 - t0):.1f} ms, statuses equal {same_status}, pobj "
+          f"max rel diff {diff:.3e} against make_batch_solver, device "
+          f"{sharded.pobj.device}")
+    check(same_status and diff <= 1e-12 and sharded.pobj.is_cuda,
+          f"NCCL sharded batch: statuses equal {same_status}, pobj rel diff "
+          f"{diff:.2e}")
+    return {"ms": 1e3 * (t1 - t0), "pobj_diff": diff}
+
+
+# the examples' counts in phase 16 (their widths are the examples' own).
+# learned_risk_budget runs 10 of its 200 steps: 40 took 107.8 s on an H100
+# (a solve at eps 1e-10 and its backward a step), 20 took 169.8 s beside
+# phases 11-14; its loss meets the
+# example's gate (below 1e-2 of the initial 9.94e-2) from step 8 on, 4.11e-4
+# at step 10 (on the CPU), 3.94e-4 at steps 20 and 40
+EXAMPLE_COUNTS = {"learned_risk_budget": {"steps": 10},
+                  "mpc_warm_start": {"steps": 10},
+                  "mpc_warm_batch": {"B": 256, "steps": 5},
+                  "portfolio_batch": {"B": 64},
+                  "robust_pca": {}}
+
+
+def examples_on_the_card() -> dict:
+    """Phase 16 d: the five examples on the card, each with its asserts."""
+    from scs_tpu_torch import examples
+    import importlib
+    walls = {}
+    for name, kw in EXAMPLE_COUNTS.items():
+        mod = importlib.import_module(f"{examples.__name__}.{name}")
+        t0 = time.perf_counter()
+        mod.main(**kw, device="cuda")
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        print(f"example {name} {kw}: {walls[name]:.1f} s")
+    return walls
+
+
+def diff_phase(lanes, child: "BatchChild") -> dict:
+    """Phase 16: (a) reverse and forward mode at the headline widths,
+    SOCP and QP, then (d) the five examples, in a process of its own
+    beside phases 11-14 (`child`); (b) box, exp and power against the CPU
+    and (c) a one-rank NCCL group, here."""
+    t0 = time.perf_counter()
+    out = child.result()
+    print(f"phase 16 (a) and (d) done at {time.perf_counter() - t0:.1f} s")
+    out["cones"] = diff_small_cones()
+    print(f"phase 16 (b) done at {time.perf_counter() - t0:.1f} s")
+    out["nccl"] = nccl_one_rank(lanes)
+    print(f"phase 16 (c) done at {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def share(c: dict) -> str:
     return (f"{100 * c['bound_ms'] / c['ms']:.0f}% of bound; without the "
             f"spin: kernel {c['ms_no_spin']:.4f} ms, library "
@@ -3096,10 +3424,16 @@ def main() -> int:
 
     done(10)
 
-    # phase 15's psd_rank batch in a process of its own, beside phases
-    # 11-14 (the main path's timed phases 3-10 run without it)
-    children["psd-rank"] = BatchChild("psd-rank")
-    print("started phase 15's psd_rank batch in a process of its own")
+    # phase 15's psd_rank batch, and phase 16's differentiation (a) and
+    # examples (d) one after the other, each in a process of its own,
+    # beside phases 11-14 (the main path's timed phases 3-10 run without
+    # them). One process for (a) and (d): with each in its own, phases
+    # 11-14 took 141.6 s longer than with no phase 16 beside them (every
+    # process a context the card time-slices; measured on one H100)
+    for name in ("psd-rank", "diff"):
+        children[name] = BatchChild(name)
+    print("started phase 15's psd_rank batch and phase 16's "
+          "differentiation and examples, each in a process of its own")
 
     # 11. the mixed-cone configurations: box, exp and power cones beside
     # zero, nonnegative and SOC rows. First each cone family as a CUDA
@@ -3210,6 +3544,14 @@ def main() -> int:
                 spec, children["psd-rank"], psd12["large"]["direct mixed"])
 
     done(15)
+
+    # 16. differentiation through the solve (reverse and forward mode at
+    # the headline widths, SOCP and QP; box, exp and power against the
+    # CPU), a one-rank NCCL group over the first 64 lanes of the headline
+    # batch, and the five examples
+    diff_phase(tuple(t[:64] for t in batch), children["diff"])
+
+    done(16)
 
     # 9. where the time of an iteration goes, mixed and pure, on the large
     # SOCP (100 iterations each unprofiled, in turns, then 25 under the

@@ -23,6 +23,13 @@ Problems come also from SCS's binary files (`io.read_scs_data`, or
 and cone dicts (`compat.SCS`, `compat.solve`); a solve can print SCS's
 log, write a per-iteration CSV trace, time its phases, checkpoint and
 resume, and track a low-rank PSD projection (`Settings.psd_rank`).
+Gradients flow through a solve, one problem or a batch, in reverse and in
+forward mode (`make_diff_solver`, `diff.py`: implicit differentiation of
+the solver's fixed point as a `torch.autograd.Function`), and a batch
+splits over processes, one a card (`parallel.multihost`,
+`parallel.make_mesh`, `parallel.shard_problem_batch`: `torch.distributed`,
+NCCL between cards, gloo on the CPU). `scs_tpu_torch.examples` holds the
+JAX package's examples.
 The double-single matvec that the mixed path runs is a hand-written CUDA
 kernel (`ops/dsmatvec.py`, `csrc/dsmatvec.cu`); so are the double-single
 matmul (`ops/dsmatmul.py`) and the roofline probe's read kernel
@@ -42,6 +49,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 from . import config  # noqa: E402
 from .api import Workspace, solve  # noqa: E402
+from .diff import make_diff_solver  # noqa: E402
 from .types import (ConeData, ConeSpec, Info, Problem,  # noqa: E402
                     Settings, Solution, problem_from_csc)
 
@@ -56,5 +64,5 @@ def scs_version() -> str:
 __all__ = [
     "Workspace", "solve", "Problem", "ConeSpec", "ConeData", "Settings",
     "Solution", "Info", "config", "__version__", "problem_from_csc",
-    "scs_version",
+    "scs_version", "make_diff_solver",
 ]

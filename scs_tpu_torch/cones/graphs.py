@@ -24,20 +24,58 @@ full loop's, bit for bit, and the CPU's plain version skips the steps
 that would change nothing. On the card `settled` is always False, so the
 loops keep their fixed count and read nothing from the host.
 
+Autograd records nothing through a replay: the outputs are clones of
+the graph's static buffers. So `run` raises where autograd would record
+through it (grad mode on and an argument that requires grad, or a dual
+tensor under forward-mode AD), instead of returning a result whose
+gradient silently lacks the projection's Jacobian. Code that
+differentiates through a projection on the card (`diff.py`'s plain map)
+runs inside `eager()`, where `run` calls fn eagerly on the card as on
+the CPU; the solver's own path never enters it and keeps its graphs.
+
 `captures` and `replays` count the graphs captured and replayed since the
 counts were last set to 0.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from collections import OrderedDict
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 GRAPH_CACHE_SIZE = 64
 
 captures = 0
 replays = 0
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def eager():
+    """Within this block (in this thread), `run` calls fn eagerly on the
+    card too, so that autograd records the projection."""
+    depth = getattr(_local, "eager", 0)
+    _local.eager = depth + 1
+    try:
+        yield
+    finally:
+        _local.eager = depth
+
+
+def _records(args) -> bool:
+    """True where autograd would record through fn(*args): reverse mode
+    with an argument that requires grad, or forward mode with a dual
+    argument."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args):
+        return True
+    return fwAD._current_level >= 0 and fwAD._is_fwd_grad_enabled() and any(
+        t is not None and fwAD.unpack_dual(t).tangent is not None
+        for t in args)
 
 
 def settled(done: torch.Tensor) -> bool:
@@ -90,8 +128,14 @@ def run(fn, args: tuple):
     on the card (see the module docstring)."""
     global captures, replays
     first = next(t for t in args if t is not None)
-    if not first.is_cuda:
+    if not first.is_cuda or getattr(_local, "eager", 0):
         return fn(*args)
+    if _records(args):
+        raise RuntimeError(
+            f"cones.graphs.run({getattr(fn, '__name__', fn)}): autograd "
+            "would record through a CUDA graph replay, which carries no "
+            "derivative; differentiate through the projection inside "
+            "cones.graphs.eager() (as scs_tpu_torch.diff does)")
     key = _key(fn, args)
     g = _graphs.pop(key, None)
     if g is None:

@@ -922,3 +922,33 @@ def test_sparse_indirect_mixed_solve_on_the_card_matches_the_cpu(cuda):
     assert abs(info.pobj - ref.pobj) <= 1e-4 * (1 + abs(ref.pobj))
     assert abs(info.pobj - opt) <= 1e-3 * (1 + abs(opt))
     assert 0.8 <= info.iter / ref.iter <= 1.25
+
+
+@pytest.mark.parametrize("name", ["box", "exp", "power"])
+def test_diff_through_graph_cones_on_the_card_matches_the_cpu(cuda, name):
+    """make_diff_solver on the card through the box, exp and power
+    projections (eager under autograd, `cones.graphs.eager`) gives the
+    CPU's gradients within 1e-6 (1 + max |g|), both solved to eps 1e-11;
+    `graphs.run` raises where autograd would record through a replay."""
+    from scs_tpu_torch import make_diff_solver
+    from scs_tpu_torch.cones import exp, graphs
+    from scs_tpu_torch.models import diff_instances
+    inst = getattr(diff_instances, f"{name}_instance")()
+    spec, prob = inst[:2]
+    raw = [prob.A, prob.b, prob.c] + list(inst[2:])
+    w = torch.as_tensor(np.random.RandomState(5).randn(prob.A.shape[1]))
+    stg = Settings(linsys="direct", eps_abs=1e-11, eps_rel=1e-11)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        solve = make_diff_solver(spec, stg, device=dev)
+        ts = [t.to(dev).clone().requires_grad_() for t in raw]
+        (solve(*ts)[0] @ w.to(dev)).backward()
+        grads[dev] = [t.grad.cpu() for t in ts]
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        assert float((g - c).abs().max()) <= 1e-6 * (
+            1 + float(c.abs().max()))
+    seg = torch.randn(4, 2, 3, dtype=torch.float64, device=cuda,
+                      requires_grad=True)
+    mask = torch.tensor([True, False], device=cuda)
+    with pytest.raises(RuntimeError, match="autograd"):
+        graphs.run(exp.proj_exp_batch, (seg, mask))
