@@ -137,6 +137,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      CPU's, and `graphs.run` raising under autograd; a one-rank NCCL
      group: `make_sharded_batch_solver` on the first 64 lanes of the
      headline batch against `make_batch_solver`;
+ 17. row (model-axis) sharding (`ops/rowshard.py`,
+     `parallel/collectives.py`): K1 at the shard shapes (4096 x 2048 and
+     2048 x 4096), K2 and K3 at the sharded batch's, against their plain
+     versions (before phase 16 (b), the card alone); then two processes
+     (`--batch-child rowshard R PORT LANES`, started there, beside phase
+     16 (b, c)) join a gloo group and solve on the one card on a (1, 2)
+     mesh, half the rows of A each, and this process runs the same solves
+     unsharded: (a) the large SOCP through make_pure_solver direct mixed
+     (float64 state: K1 on each rank's rows) and direct pure, each held to
+     status solved, SCS's termination test, the planted optimum and the
+     unsharded solve (1e-3 (1 + |opt|)), and indirect mixed capped at
+     ROWSHARD_INDIRECT_CAP iterations (timed: its CG takes a collective
+     a CG iteration), and tests/test_parallel.py:83's one problem (m =
+     80, 40 rows a rank) indirect mixed to the end with every gate; (b)
+     the first 64 lanes of the headline batch through make_batch_solver
+     mixed with float64 state (K2), statuses equal to the unsharded
+     solve's, objectives within 1e-3; (c) A' z with
+     float32 z from each rank's K3 pairs summed in float64 against the
+     float64 product, and 8 lanes mixed with float32 state (K2, K3), every
+     lane the unsharded solve solves solved within 5e-3. The ranks return
+     the same bits; each rank's launches are counted around its solves;
+     ms per iteration and collectives per iteration beside the unsharded
+     solve's;
   9. last, a profile of 25 iterations of the large SOCP, mixed, of 25
      batched steps of the headline batch's float32-state phase and of 25
      iterations of phase 14's full sparse instance, mixed
@@ -156,9 +179,9 @@ Phases 3-6 run the direct backend (`Settings(linsys="direct")`).
 Each phase ends with a line `phase N done at T s` (seconds since the
 start). The whole run, the build included, has to end inside 1200 s on
 one H100: that is the time a caller of this script gives it.
-The second-to-last line is a JSON object with one entry per kernel (K1-K7)
-and per sparse use of K2 and K1 (phase 14), the last line {"ok": true,
-"device": {...}}.
+The second-to-last line is a JSON object with one entry per kernel (K1-K7),
+per sparse use of K2 and K1 (phase 14) and per row-sharded use of K1-K3
+(phase 17), the last line {"ok": true, "device": {...}}.
 """
 
 import atexit
@@ -1084,13 +1107,14 @@ def _as_json(res: dict) -> dict:
             for k, v in res.items()}
 
 
-def f32_batch_child(name: str) -> dict:
+def f32_batch_child(name: str, *args: str) -> dict:
     """The child's work: the batch `name` in the default mode (mixed,
     float32 state) through solve_batch and its gates (objective within
     5e-3 of the planted optimum, SCS's termination test), with the
     spectral kernels' launches; numpy arrays as lists. "psd-rank" is
     phase 15's batch instead (`psd_rank_batch`), "diff" phase 16 (a)
-    (`diff_headline`) and (d) (`examples_on_the_card`)."""
+    (`diff_headline`) and (d) (`examples_on_the_card`), "rowshard" one
+    rank of phase 17 (`rowshard_rank`; args: rank, port, lanes)."""
     torch.set_num_threads(1)
     parent = os.getppid()
 
@@ -1105,6 +1129,10 @@ def f32_batch_child(name: str) -> dict:
         runs = psd_rank_batch()
         return {"runs": {str(k): _as_json(v) for k, v in runs.items()},
                 "ended_at": time.time()}
+    if name == "rowshard":
+        rank, port, lanes = args
+        return rowshard_rank(int(rank), int(port),
+                             [int(i) for i in lanes.split(",")])
     if name == "diff":
         out = {"socp": diff_headline(False), "qp": diff_headline(True)}
         return dict(out, examples=examples_on_the_card(),
@@ -1120,18 +1148,19 @@ def f32_batch_child(name: str) -> dict:
 
 
 class BatchChild:
-    """`python3 chip_smoke.py --batch-child NAME`, started now; `result()`
-    waits for it, prints its output and returns its solve_batch record."""
+    """`python3 chip_smoke.py --batch-child NAME [ARGS]`, started now;
+    `result()` waits for it, prints its output and returns its last line's
+    record (a solve_batch record for the float32-state batches)."""
 
     running: list = []
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, name: str, *args: str, label: str = ""):
+        self.name = label or name
         self.log = tempfile.TemporaryFile(mode="w+")
         self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--batch-child",
-             name], stdout=self.log, stderr=subprocess.STDOUT, text=True,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
+             name, *args], stdout=self.log, stderr=subprocess.STDOUT,
+            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
         self.started_at = time.time()
         BatchChild.running.append(self)
 
@@ -3120,6 +3149,386 @@ def diff_phase(lanes, child: "BatchChild") -> dict:
     return out
 
 
+# ---- phase 17: row (model-axis) sharding, two gloo ranks on the card ----
+#
+# Two processes (`--batch-child rowshard R PORT LANES`) join a gloo group
+# on a loopback port and solve on the one card on a (1, 2) mesh, each
+# holding half the rows of A (NCCL refuses two ranks on one device; gloo
+# stages CUDA tensors through host memory). They start before phase 16
+# (b) and run beside it; this process runs the unsharded references in
+# phase 17, then holds the ranks' results to them. The one-problem
+# solves run mixed with float64 state, so that their products on the
+# shards are K1 (float32 state runs K2 and K3, (c)). The indirect
+# backend's CG takes one collective a CG iteration, 43-49 an ADMM
+# iteration on the large SOCP and on the headline problem, ~2.4-2.9 ms
+# each with the card shared (PERF.md): the large SOCP's indirect leg ran
+# 179 ms an iteration and the headline problem's 186, so solved to the
+# end they would take ~6 min and 65 s. The indirect leg runs
+# ROWSHARD_INDIRECT_CAP iterations of the large SOCP, timed and held rank
+# to rank, and solves the JAX tests' row-sharded instance
+# (tests/test_parallel.py:83, ROWSHARD_SMALL) to the end.
+
+ROWSHARD_INDIRECT_CAP = 20
+ROWSHARD_INDIRECT = dict(linsys="indirect", fast_f32=False)
+# tests/test_parallel.py:83's one problem, 40 rows a rank, shard edges
+# inside its SOC blocks
+ROWSHARD_SMALL = (ConeSpec(z=16, l=40, q=(8, 16)), 30, 7, 0.4)
+# (label, Settings keywords, iteration cap) of phase 17 (a)'s large SOCP
+ROWSHARD_LARGE = (
+    ("direct mixed", dict(linsys="direct", fast_f32=False), None),
+    ("direct pure", dict(linsys="direct", mixed_precision=False), None),
+    ("indirect mixed", ROWSHARD_INDIRECT, ROWSHARD_INDIRECT_CAP),
+)
+ROWSHARD_BATCH = dict(linsys="direct", chunk_iters=250, fast_f32=False)
+ROWSHARD_F32 = dict(linsys="direct", chunk_iters=250)
+# (c)'s float32-state lanes: 8 of the headline batch's first 64 whose
+# float32-state solve took 250-325 iterations on an H100, unsharded and
+# sharded alike (tools/torch_rowshard_phase.py, PERF.md); with float32
+# state a few lanes of this family take thousands (phase 6's note)
+ROWSHARD_F32_LANES = (14, 15, 24, 35, 36, 42, 58, 60)
+
+
+def _reset_counts() -> None:
+    from scs_tpu_torch.parallel import collectives
+    dsmatvec.launches = dsmatvec.batched_launches = 0
+    dsmatvec.pair_launches = 0
+    collectives.calls, collectives.seconds = 0, 0.0
+
+
+def _counts(wall: float, iters: int) -> dict:
+    from scs_tpu_torch.parallel import collectives
+    return {"k1": dsmatvec.launches, "k2": dsmatvec.batched_launches,
+            "k3": dsmatvec.pair_launches, "collectives": collectives.calls,
+            "collective_s": collectives.seconds, "wall_s": wall,
+            "ms_per_it": 1e3 * wall / max(iters, 1)}
+
+
+def rowshard_one(p, spec, kw: dict, cap, group=None) -> dict:
+    """One problem through make_pure_solver on the card, A this rank's
+    rows over `group` (None: unsharded), with the kernel launches and the
+    collectives counted around the solve; with `group`, SCS's termination
+    test on the (gathered, whole) solution."""
+    from scs_tpu_torch.ops import rowshard
+    from scs_tpu_torch.parallel import make_pure_solver
+    A, b, c = (getattr(p.problem, k).cuda() for k in ("A", "b", "c"))
+    op = A if group is None else rowshard.shard_rows(A, group)
+    e = torch.zeros(0, dtype=torch.float64, device="cuda")
+    stg = Settings(**kw)
+    solve = make_pure_solver(spec, stg, max_iters=cap)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = solve(op, None, b, c, e, e)
+    status = int(res.status)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters = int(res.iters)
+    rec = {"status": status, "iters": iters, "pobj": float(res.pobj),
+           "opt": float(p.opt), "finite": bool(torch.isfinite(res.x).all()),
+           "digest": _digest(*(t.cpu().numpy()
+                              for t in (res.x, res.y, res.s, res.pobj))),
+           **_counts(wall, iters)}
+    if group is not None and cap is None:
+        sol = types.SimpleNamespace(x=res.x[None], y=res.y[None],
+                                    s=res.s[None])
+        rec["term_fail"] = {k: v.tolist() for k, v in termination_failures(
+            (A[None], b[None], c[None]), sol, stg).items()}
+    return rec
+
+
+def rowshard_batch(batch, kw: dict, mesh=None) -> dict:
+    """Lanes of the headline batch through make_batch_solver on the card,
+    A each rank's rows over `mesh`'s "model" dimension (None:
+    unsharded), the launches and collectives counted around the solve;
+    with `mesh`, SCS's termination test on every lane."""
+    from scs_tpu_torch.parallel import make_batch_solver, shard_problem_batch
+    A, b, c = batch[:3]
+    e = torch.zeros(A.shape[0], 0, dtype=torch.float64, device="cuda")
+    args = (A, b, c, e, e)
+    if mesh is not None:
+        A_l, _, b_l, c_l, bu, bl = shard_problem_batch(
+            mesh, A, None, b, c, e, e, shard_rows=True)
+        args = (A_l, b_l, c_l, bu, bl)
+    stg = Settings(**kw)
+    solver = make_batch_solver(HEADLINE, stg)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = solver(*args)
+    status = res.status.cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = sum(lv[3] for lv in solver.levels)
+    rec = {"status": status.tolist(), "iters": res.iters.tolist(),
+           "pobj": res.pobj.tolist(), "steps": steps,
+           "f32_state": solver.machinery.f32_state,
+           "digest": _digest(*(t.cpu().numpy()
+                              for t in (res.x, res.y, res.s, res.pobj))),
+           **_counts(wall, steps)}
+    if mesh is not None:
+        rec["term_fail"] = {k: v.tolist() for k, v in termination_failures(
+            batch, res, stg).items()}
+    return rec
+
+
+def rowshard_pair(batch, group) -> dict:
+    """Phase 17 (c)'s product: A' z of the 64 lanes with float32 z as the
+    float32-state phase takes it, each rank's K3 pair composed in float64
+    and summed over the ranks (`RowShardedSplit.sum64`), against the
+    float64 product of the split's exact hi + lo of the whole A', each
+    lane held to 1e-12 max(|A'||z|) (phase 2's K3 limit); wall ms of 20
+    calls (the two ranks call together), and of the unsharded K3."""
+    from scs_tpu_torch.ops import rowshard
+    A = batch[0]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    z = torch.randn(A.shape[0], A.shape[1], generator=gen,
+                    dtype=torch.float64, device="cuda").to(torch.float32)
+    _, bwd = rowshard.shard_rows(A, group).split()
+    got = bwd.sum64(z)
+    full = dsmatvec.split_operand(A.transpose(1, 2))
+    exact = full.hi.double() + full.lo.double()
+    z64 = z.double().unsqueeze(-1)
+    ref = torch.matmul(exact, z64).squeeze(-1)
+    err = (got - ref).abs().amax(1)
+    tol = 1e-12 * torch.matmul(exact.abs(), z64.abs()).squeeze(-1).amax(1)
+
+    def wall_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    return {"max_abs_err": float(err.max()), "tol": float(tol.min()),
+            "ok": bool((err <= tol).all()),
+            "sharded_ms": wall_ms(lambda: bwd.sum64(z)),
+            "unsharded_k3_ms": wall_ms(
+                lambda: dsmatvec.ds_matvec_pair_batched(full, z))}
+
+
+def _rowshard_small():
+    spec, n, seed, density = ROWSHARD_SMALL
+    return gen_planted(spec, n=n, seed=seed, density=density)
+
+
+def rowshard_rank(rank: int, port: int, easy: list) -> dict:
+    """One rank of phase 17: a gloo group of two on a loopback port, a
+    (1, 2) mesh on the card; (a) the large SOCP one problem
+    (`ROWSHARD_LARGE`) and the JAX tests' instance indirect mixed
+    (`ROWSHARD_SMALL`); (b) the first 64 lanes of the headline batch
+    mixed with float64 state; (c) the K3 pair sum, and the lanes `easy`
+    mixed with float32 state."""
+    import torch.distributed as dist
+    from scs_tpu_torch.parallel import make_mesh
+    multihost.init_distributed(f"127.0.0.1:{port}", 2, rank,
+                               backend="gloo")
+    try:
+        mesh = make_mesh(data=1, model=2, device="cuda")
+        group = mesh.get_group("model")
+        spec = make_spec(2048, 0.1, np.random.RandomState(7))
+        big_p = gen_planted(spec, n=2048, seed=7, density=0.3)
+        out = {"rank": rank, "large": {}}
+        for label, kw, cap in ROWSHARD_LARGE:
+            out["large"][label] = rowshard_one(big_p, spec, kw, cap, group)
+            print(f"rank {rank}: large SOCP {label}: "
+                  f"{out['large'][label]}", flush=True)
+        out["small"] = rowshard_one(_rowshard_small(), ROWSHARD_SMALL[0],
+                                    ROWSHARD_INDIRECT, None, group)
+        batch = headline_batch(HEADLINE, 64, 1000)
+        out["batch"] = rowshard_batch(batch, ROWSHARD_BATCH, mesh)
+        out["pair"] = rowshard_pair(batch, group)
+        out["f32"] = rowshard_batch(lanes_of(batch, np.asarray(easy)),
+                                    ROWSHARD_F32, mesh)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    out["ended_at"] = time.time()
+    return out
+
+
+def rowshard_rows() -> dict:
+    """Phase 17's kernel rows, with the card alone: K1 at the shard shapes
+    of the large SOCP, K2 and K3 at the sharded batch's."""
+    rows = {"k1 A_r": ds_matvec_case(4096, 2048, seed=70),
+            "k1 A_r'": ds_matvec_case(2048, 4096, seed=71),
+            "k2 A_r": ds_matvec_batched_case(64, 200, 100, seed=72),
+            "k3 A_r'": ds_matvec_batched_case(64, 100, 200, seed=73,
+                                              x32=True, pair=True)}
+    for name, c in rows.items():
+        print(f"phase 17 row {name} {'x'.join(map(str, c['shape']))}: "
+              f"max_abs_err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}), "
+              f"kernel {c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}), {share(c)}, plain {c['plain_ms']:.4f} "
+              f"ms, library {c['library_ms']:.4f} ms")
+    return rows
+
+
+def rowshard_start(easy=ROWSHARD_F32_LANES) -> list:
+    """Phase 17's two ranks (`rowshard_rank`), started now, each in a
+    process of its own, on a free loopback port; `easy`: (c)'s lanes."""
+    torch.cuda.empty_cache()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    lanes = ",".join(str(int(i)) for i in easy)
+    return [BatchChild("rowshard", str(r), str(port), lanes,
+                       label=f"rowshard rank {r}") for r in range(2)]
+
+
+def rowshard_phase(ranks: list, rows: dict,
+                   easy=ROWSHARD_F32_LANES) -> dict:
+    """Phase 17: the unsharded references here, then the ranks' results
+    (`rowshard_start`) held to them; every gate of phase 17."""
+    t0 = time.perf_counter()
+    spec = make_spec(2048, 0.1, np.random.RandomState(7))
+    big_p = gen_planted(spec, n=2048, seed=7, density=0.3)
+    ref = {label: rowshard_one(big_p, spec, kw, cap)
+           for label, kw, cap in ROWSHARD_LARGE}
+    ref_small = rowshard_one(_rowshard_small(), ROWSHARD_SMALL[0],
+                             ROWSHARD_INDIRECT, None)
+    batch = headline_batch(HEADLINE, 64, 1000)
+    ref_batch = rowshard_batch(batch, ROWSHARD_BATCH)
+    ref_f32 = rowshard_batch(lanes_of(batch, np.asarray(easy)),
+                             ROWSHARD_F32)
+    got = [c.result() for c in ranks]
+
+    def same_bits(key, label=None):
+        d = [g[key] if label is None else g[key][label] for g in got]
+        check(d[0]["digest"] == d[1]["digest"],
+              f"phase 17 {key} {label or ''}: the ranks' results differ")
+
+    def failing(g, lanes=None):
+        """{test: lanes failing SCS's termination test} among `lanes`."""
+        out = {}
+        for k, v in g["term_fail"].items():
+            v = np.asarray(v)
+            bad = int(v[lanes].sum() if lanes is not None else v.sum())
+            if bad:
+                out[k] = bad
+        return out
+
+    def gate_one(name, g, g1, r, full: bool):
+        err_opt = abs(g["pobj"] - g["opt"]) / (1 + abs(g["opt"]))
+        err_ref = abs(g["pobj"] - r["pobj"]) / (1 + abs(r["pobj"]))
+        print(f"phase 17 {name}: rank 0 status {g['status']}, {g['iters']} "
+              f"iterations, {g['ms_per_it']:.3f} ms/it (unsharded "
+              f"{r['ms_per_it']:.3f} ms/it, {r['iters']} iterations), "
+              f"{g['collectives'] / max(g['iters'], 1):.2f} collectives/it "
+              f"({1e3 * g['collective_s'] / max(g['collectives'], 1):.3f} ms "
+              f"each on the host), K1 {g['k1']} (rank 1 {g1['k1']}), pobj "
+              f"{g['pobj']!r} (planted {g['opt']!r}, rel {err_opt:.2e}; "
+              f"unsharded {r['pobj']!r}, rel {err_ref:.2e})"
+              + (f", termination failures {failing(g)}" if full else ""))
+        check(g["finite"], f"phase 17 {name}: x not finite")
+        if not full:
+            # the capped leg's iterate tracks the unsharded one's (6.9e-7
+            # apart after 20 iterations on an H100, PERF.md)
+            check(err_ref <= 1e-3, f"phase 17 {name}: pobj {err_ref:.2e} "
+                  f"from the unsharded solve's at the same cap")
+        if full:
+            check(g["status"] == 1 and r["status"] == 1,
+                  f"phase 17 {name}: statuses {g['status']}, {r['status']}")
+            check(not failing(g), f"phase 17 {name}: SCS's termination "
+                  f"test fails {failing(g)}")
+            check(err_opt <= 1e-3 and err_ref <= 1e-3,
+                  f"phase 17 {name}: pobj {err_opt:.2e} from the planted "
+                  f"optimum, {err_ref:.2e} from the unsharded solve")
+
+    for label, kw, cap in ROWSHARD_LARGE:
+        same_bits("large", label)
+        gate_one(f"large SOCP {label}", got[0]["large"][label],
+                 got[1]["large"][label], ref[label], cap is None)
+        if kw.get("mixed_precision", True):
+            check(all(x["large"][label]["k1"] > 0 for x in got),
+                  f"phase 17 large SOCP {label}: a rank launched no K1")
+    same_bits("small")
+    gate_one("test_parallel.py:83's problem indirect mixed", got[0]["small"],
+             got[1]["small"], ref_small, True)
+    check(all(x["small"]["k1"] > 0 for x in got),
+          "phase 17 test_parallel.py:83's problem: a rank launched no K1")
+
+    for key, r, tol in (("batch", ref_batch, 1e-3), ("f32", ref_f32, 5e-3)):
+        same_bits(key)
+        g = got[0][key]
+        st, st_ref = np.asarray(g["status"]), np.asarray(r["status"])
+        opts = batch[3] if key == "batch" else batch[3][np.asarray(easy)]
+        err = np.abs(np.asarray(g["pobj"]) - opts) / (1 + np.abs(opts))
+        print(f"phase 17 {key}: B={st.size}, float32 state "
+              f"{g['f32_state']}, {g['steps']} steps in {g['wall_s']:.3f} s "
+              f"({g['ms_per_it']:.3f} ms/step; unsharded {r['steps']} steps, "
+              f"{r['ms_per_it']:.3f} ms/step), "
+              f"{g['collectives'] / max(g['steps'], 1):.2f} collectives a "
+              f"step, K2 {g['k2']}, K3 {g['k3']} (rank 1: K2 "
+              f"{got[1][key]['k2']}, K3 {got[1][key]['k3']}), statuses "
+              f"{np.unique(st, return_counts=True)}, max pobj rel err "
+              f"{err[st == 1].max() if (st == 1).any() else float('nan'):.2e}"
+              f", termination failures {failing(g)}")
+        check(all(x[key]["k2"] > 0 for x in got),
+              f"phase 17 {key}: a rank launched no K2")
+        if key == "batch":
+            check(bool(np.array_equal(st, st_ref)),
+                  f"phase 17 batch: statuses {st} against unsharded {st_ref}")
+            check(bool(np.all(err <= tol)),
+                  f"phase 17 batch: pobj {err.max():.2e} from the planted "
+                  f"optima")
+            check(not failing(g), f"phase 17 batch: SCS's termination test "
+                  f"fails {failing(g)}")
+        else:
+            check(g["f32_state"] and all(x[key]["k3"] > 0 for x in got),
+                  "phase 17 (c): no float32-state step, or a rank launched "
+                  "no K3")
+            solved = st_ref == 1
+            check(bool(np.all(st[solved] == 1)),
+                  f"phase 17 (c): lanes the unsharded solve solves end "
+                  f"{st[solved]}")
+            check(bool(np.all(err[solved] <= tol)),
+                  f"phase 17 (c): pobj {err[solved].max():.2e} from the "
+                  f"planted optima")
+            check(not failing(g, solved), f"phase 17 (c): SCS's "
+                  f"termination test fails {failing(g, solved)}")
+    pr = got[0]["pair"]
+    print(f"phase 17 (c) A' z, float32 z, K3 pairs summed over the ranks in "
+          f"float64: max_abs_err {pr['max_abs_err']:.3e} (tol >= "
+          f"{pr['tol']:.3e} per lane), {pr['sharded_ms']:.3f} ms a call "
+          f"with its collective (unsharded K3 {pr['unsharded_k3_ms']:.3f} "
+          f"ms)")
+    check(pr["ok"] and got[1]["pair"]["ok"],
+          f"phase 17 (c): the sharded K3 sum is {pr['max_abs_err']:.2e} "
+          f"from the float64 product")
+    print(f"phase 17 took {time.perf_counter() - t0:.1f} s here, the "
+          f"ranks {got[0]['ended_at'] - ranks[0].started_at:.1f} s from "
+          f"their start")
+    return {"rows": rows, "got": got, "ref": ref, "ref_batch": ref_batch}
+
+
+def rowshard_kernel_rows(rs17: dict) -> list:
+    """The `kernels` entries of phase 17: K1, K2 and K3 on the row shards,
+    each with rank 0's launches in the phase's solve that runs it."""
+    rows, got = rs17["rows"], rs17["got"][0]
+    out = []
+    for name, key, replaces, launches, errs in (
+            ("ds_matvec_row_shard", "k1 A_r", "scs_tpu/ops/dsmatvec.py:91",
+             got["large"]["direct mixed"]["k1"],
+             [rows["k1 A_r"]["max_abs_err"], rows["k1 A_r'"]["max_abs_err"]]),
+            ("ds_matvec_batched_row_shard", "k2 A_r",
+             "scs_tpu/ops/dsmatvec.py:226", got["batch"]["k2"],
+             [rows["k2 A_r"]["max_abs_err"]]),
+            ("ds_matvec_pair_batched_row_shard", "k3 A_r'",
+             "scs_tpu/ops/dsmatvec.py:471", got["f32"]["k3"],
+             [rows["k3 A_r'"]["max_abs_err"], got["pair"]["max_abs_err"]])):
+        c = rows[key]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "scs_tpu_torch/csrc/dsmatvec.cu", "replaces": replaces,
+            "launches": launches, "max_abs_err": max(errs), "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    return out
+
+
 def share(c: dict) -> str:
     return (f"{100 * c['bound_ms'] / c['ms']:.0f}% of bound; without the "
             f"spin: kernel {c['ms_no_spin']:.4f} ms, library "
@@ -3174,8 +3583,9 @@ def main() -> int:
         print(json.dumps(_repeat_solve()))
         return 0
     if sys.argv[1:2] == ["--batch-child"]:
-        # a float32-state batch of phases 11-13 (BatchChild)
-        print(json.dumps(f32_batch_child(sys.argv[2]),
+        # a float32-state batch of phases 11-13, or another process of
+        # phases 15-17 (BatchChild)
+        print(json.dumps(f32_batch_child(*sys.argv[2:]),
                          default=lambda v: v.item()))
         return 0
     t_start = time.perf_counter()
@@ -3545,6 +3955,11 @@ def main() -> int:
 
     done(15)
 
+    # phase 17's kernel rows with the card alone, then its two ranks,
+    # started now to run beside phase 16 (b, c)
+    rows17 = rowshard_rows()
+    ranks17 = rowshard_start()
+
     # 16. differentiation through the solve (reverse and forward mode at
     # the headline widths, SOCP and QP; box, exp and power against the
     # CPU), a one-rank NCCL group over the first 64 lanes of the headline
@@ -3552,6 +3967,14 @@ def main() -> int:
     diff_phase(tuple(t[:64] for t in batch), children["diff"])
 
     done(16)
+
+    # 17. row (model-axis) sharding: two gloo ranks on the card, a (1, 2)
+    # mesh, half the rows of A each; the large SOCP one problem, 64 lanes
+    # of the headline batch with float64 state, the K3 pair sum, and 8
+    # lanes with float32 state, against the unsharded solves
+    rs17 = rowshard_phase(ranks17, rows17)
+
+    done(17)
 
     # 9. where the time of an iteration goes, mixed and pure, on the large
     # SOCP (100 iterations each unprofiled, in turns, then 25 under the
@@ -3665,7 +4088,7 @@ def main() -> int:
         "bound_ms": sparse14["rows"][0]["bound_ms"],
         "bound_by": sparse14["rows"][0]["bound_by"],
         "library_ms": sparse14["rows"][0]["library_ms"],
-    }, {
+    }, *rowshard_kernel_rows(rs17), {
         "name": "ds_matvec_sparse_direct", "route": "cuda",
         "source": "scs_tpu_torch/csrc/dsmatvec.cu",
         "replaces": "scs_tpu/ops/dsmatvec.py:91",

@@ -28,7 +28,9 @@ forward mode (`make_diff_solver`, `diff.py`: implicit differentiation of
 the solver's fixed point as a `torch.autograd.Function`), and a batch
 splits over processes, one a card (`parallel.multihost`,
 `parallel.make_mesh`, `parallel.shard_problem_batch`: `torch.distributed`,
-NCCL between cards, gloo on the CPU). `scs_tpu_torch.examples` holds the
+NCCL between cards, gloo on the CPU), and so do one problem's rows of A
+over a mesh's "model" dimension (`shard_rows=True`, `ops.rowshard`).
+`scs_tpu_torch.examples` holds the
 JAX package's examples.
 The double-single matvec that the mixed path runs is a hand-written CUDA
 kernel (`ops/dsmatvec.py`, `csrc/dsmatvec.cu`); so are the double-single

@@ -32,6 +32,7 @@ from .cones.project import proj_dual_cone
 from .equilibrate import (equilibrate, identity_scaling, normalize_b_c,
                           normalize_xys, unnormalize_xys)
 from .linsys import Mats, get_backend, prepare_operands, resolve_mixed
+from .ops.rowshard import is_row_sharded
 from .ops.sparse import is_sparse, sparse_to_csc
 from .solver import (TRACE_COLUMNS, Iteration, LoopState, PhaseClock,
                      ProblemData, Residuals, Tracer, moreau_repolish,
@@ -147,6 +148,11 @@ class Workspace:
         stg = settings
         dev = _resolve_device(device)
         dtype = stg.dtype
+        if is_row_sharded(problem.A):
+            raise TypeError(
+                "a row-sharded A (ops.rowshard.RowShardedA) solves through "
+                "scs_tpu_torch.parallel's make_pure_solver, "
+                "make_batch_solver or make_chunked_batch_solver")
         validate(problem, spec, cone_data, stg)
         self.spec = spec
         self.stg = stg

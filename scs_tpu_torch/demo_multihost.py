@@ -10,9 +10,12 @@ process. Each rank takes its slice of a batch of planted SOCPs through
 `local_batch_slice`), solves it with `make_sharded_batch_solver` on its
 device (its card under NCCL, the default; the CPU under gloo with
 `--device cpu`), and rank 0 prints one JSON line of the gathered
-statuses, iterations and objectives. With more than one rank, it also
-records the message of the row-sharding request that raises
-(ROADMAP queue 1, item 16b).
+statuses, iterations and objectives. With an even number of ranks it
+also solves the batch on a (world / 2, 2) mesh, as the JAX package's
+`dryrun_multichip` does: each rank its slice along "data" and its rows
+of A along "model" (`shard_problem_batch(..., shard_rows=True)`), the
+results gathered over "data" (`make_sharded_batch_solver(...,
+axis_name="data")`), under "rows" in the line.
 """
 
 import torch
@@ -59,20 +62,22 @@ def main(argv=None) -> int:
         make_mesh(data=world), A, None, b, c, bu, bl)
     sl = local_batch_slice(args.batch)
     assert torch.equal(A_l.cpu(), A[sl]), "shard_problem_batch's rows"
-    rows_raise = None
-    if world > 1:
-        try:
-            shard_problem_batch(make_mesh(data=1, model=world), A, None, b,
-                                c, bu, bl, shard_rows=True)
-        except NotImplementedError as e:
-            rows_raise = str(e)
     res = make_sharded_batch_solver(spec, stg, make_global_mesh())(
         A_l, b_l, c_l, bu_l, bl_l)
+    rows = None
+    if world % 2 == 0:
+        mesh = make_mesh(data=world // 2, model=2)
+        A_r, _, b_r, c_r, bu_r, bl_r = shard_problem_batch(
+            mesh, A, None, b, c, bu, bl, shard_rows=True)
+        out = make_sharded_batch_solver(spec, stg, mesh, axis_name="data")(
+            A_r, b_r, c_r, bu_r, bl_r)
+        rows = {k: getattr(out, k).tolist()
+                for k in ("status", "iters", "pobj")}
     if dist.get_rank() == 0:
         print(json.dumps({
             "world": world, "status": res.status.tolist(),
             "iters": res.iters.tolist(), "pobj": res.pobj.tolist(),
-            "device": str(res.pobj.device), "rows_raise": rows_raise}),
+            "device": str(res.pobj.device), "rows": rows}),
             flush=True)
     dist.barrier()
     dist.destroy_process_group()

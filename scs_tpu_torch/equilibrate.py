@@ -12,7 +12,11 @@ run on the card.
 A and P may each be a sparse operand (`ops.sparse.SparseA`): its row and
 column norms and its scaling use the structure-aware operations, never
 the dense matrix (scs_tpu/equilibrate.py:61-140), and each pass makes a
-new operand.
+new operand. In `equilibrate_batched` A may be row-sharded
+(`ops.rowshard.RowShardedA`): its row statistics are gathered over the
+model group and its column statistics reduced (max, or a sum), so that
+the segment aggregation over cone blocks and D and E run on whole
+vectors on every rank, and each rank scales its own rows.
 
 The `*_batched` functions equilibrate and normalize a stack of B problems
 of one shape (leading batch axis); each problem's D and E are those of
@@ -30,6 +34,7 @@ import torch
 from . import config
 from .cones.project import cone_boundaries
 from .cones.segments import segment_sum
+from .ops.rowshard import is_row_sharded
 from .ops.sparse import is_sparse
 from .types import ConeSpec
 
@@ -196,38 +201,45 @@ def _segment_amax_batched(vals, ids, nseg):
 
 
 def equilibrate_batched(A: torch.Tensor, P, spec: ConeSpec):
-    """`equilibrate` for a (B, m, n) stack (and P (B, n, n) or None):
-    the same passes, each problem scaled by its own row and column norms.
-    Returns (A, P, Scaling)."""
+    """`equilibrate` for a (B, m, n) stack (and P (B, n, n) or None), or
+    a batched RowShardedA: the same passes, each problem scaled by its own
+    row and column norms. Returns (A, P, Scaling)."""
     ids_np, nseg = _segment_ids(spec)
     ids = torch.as_tensor(ids_np, device=A.device)
     B, m, n = A.shape
     D = torch.ones(B, m, dtype=A.dtype, device=A.device)
     E = torch.ones(B, n, dtype=A.dtype, device=A.device)
+    sharded = is_row_sharded(A)
+
+    def scale_a(A, Dt, Et):
+        if sharded:
+            return A.scale(Dt, Et)
+        return Dt[:, :, None] * A * Et[:, None, :]
 
     for _ in range(config.NUM_RUIZ_PASSES):
-        Dt = torch.amax(torch.abs(A), dim=2)
+        Dt = A.row_abs_max() if sharded else torch.amax(torch.abs(A), dim=2)
         Dt = _segment_amax_batched(Dt, ids, nseg)[:, ids]
         Dt = 1.0 / torch.sqrt(_apply_limit(Dt))
-        Et = torch.amax(torch.abs(A), dim=1)
+        Et = A.col_abs_max() if sharded else torch.amax(torch.abs(A), dim=1)
         if P is not None:
             Et = torch.maximum(Et, torch.amax(torch.abs(P), dim=1))
         Et = 1.0 / torch.sqrt(_apply_limit(Et))
-        A = Dt[:, :, None] * A * Et[:, None, :]
+        A = scale_a(A, Dt, Et)
         if P is not None:
             P = Et[:, :, None] * P * Et[:, None, :]
         D = D * Dt
         E = E * Et
 
     for _ in range(config.NUM_L2_PASSES):
-        Dt = torch.sqrt(torch.sum(A * A, dim=2))
+        Dt = torch.sqrt(A.row_sumsq() if sharded
+                        else torch.sum(A * A, dim=2))
         Dt = _segment_mean(Dt, spec, ids)
         Dt = 1.0 / torch.sqrt(_apply_limit(Dt))
-        Et = torch.sum(A * A, dim=1)
+        Et = A.col_sumsq() if sharded else torch.sum(A * A, dim=1)
         if P is not None:
             Et = Et + torch.sum(P * P, dim=1)
         Et = 1.0 / torch.sqrt(_apply_limit(torch.sqrt(Et)))
-        A = Dt[:, :, None] * A * Et[:, None, :]
+        A = scale_a(A, Dt, Et)
         if P is not None:
             P = Et[:, :, None] * P * Et[:, None, :]
         D = D * Dt

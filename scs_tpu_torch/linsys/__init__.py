@@ -31,13 +31,14 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from ..ops import sparse
+from ..ops import rowshard, sparse
 from . import direct, indirect
 
 
 class Mats(NamedTuple):
     """Loop-invariant linear-system operands (A and P dense tensors or, for
-    one problem, `ops.sparse.SparseA`s)."""
+    one problem, `ops.sparse.SparseA`s; A may be row-sharded,
+    `ops.rowshard.RowShardedA`)."""
 
     A: torch.Tensor
     P: Optional[torch.Tensor]
@@ -105,14 +106,15 @@ def resolve_fast_f32(stg, mixed: bool, ds: bool) -> bool:
 def _shadows(backend, A, P, mixed: bool):
     """(A32, P32): the float32 shadows the mixed indirect CG runs on (the
     JAX package builds them for both backends; only indirect reads them).
-    A SparseA's shadow is the SparseA of its float32 tiles and tails."""
+    A SparseA's shadow is the SparseA of its float32 tiles and tails, a
+    RowShardedA's the RowShardedA of its float32 rows."""
     if not (mixed and backend is indirect):
         return None, None
 
     def f32(M):
         if M is None:
             return None
-        if sparse.is_sparse(M):
+        if sparse.is_sparse(M) or rowshard.is_row_sharded(M):
             return M.astype(torch.float32)
         return M.to(torch.float32)
 

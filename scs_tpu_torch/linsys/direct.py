@@ -20,6 +20,14 @@ whatever A's storage); a sparse P is densified once for G; the mixed
 path's A x and A' z run K2 on the tiles and K1 on the dense tails
 (`ops.sparse.ds_sparse_matvec`), K x K1 on K's split.
 
+A row-sharded A (`ops.rowshard.RowShardedA`, a batch: the batched
+solvers take one problem as a batch of one) forms K as the sum over the
+model group of each rank's A_r'A_r + 999 A_{z,r}'A_{z,r} (a rank's
+zero-cone rows are those whose global index is below z), so that K, its
+split and the factor are whole on every rank; A_r and A_r' are split
+locally, and A x and A' z go through `matvec` (the local product, then
+the group's collective).
+
 The `*_batched` functions do the same for a stack of B problems of one
 shape, with a leading batch axis on every operand (the JAX package's
 vmapped precompute/derive/solve): batched products, batched Cholesky
@@ -44,9 +52,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops import dsmatvec, sparse
+from ..ops import dsmatvec, rowshard, sparse
 from ..ops.dsmatvec import DsSplit
-from .matvec import bmv, ds_mv
+from .matvec import bmv, ds_mv, mT, mv
 
 METHOD_NAME = "dense-direct-schur-cholesky"
 
@@ -95,6 +103,17 @@ def precompute(A, P, n_zero: int, ds: bool = False) -> DirectCache:
                        dsmatvec.split_operand(K))
 
 
+def _precompute_row_sharded(A, n_zero: int, ds: bool) -> DirectCache:
+    """The cache of a batched RowShardedA: K summed over the model group,
+    the local splits of A_r and A_r' (their products gather or sum over
+    the group), K's split whole."""
+    K = A.gram(n_zero)
+    if not ds:
+        return DirectCache(K, None, None, None)
+    fwd, bwd = A.split()
+    return DirectCache(K, fwd, bwd, dsmatvec.split_operand(K))
+
+
 def _gram(mats, diag_r, scale):
     n = mats.A.shape[1]
     G = scale * mats.cache.K + torch.diag(diag_r[:n])
@@ -119,13 +138,13 @@ def _gram_matvec(mats, diag_r, scale, x):
 def _A_matvec(mats, x):
     if mats.cache.ds_fwd is not None:
         return ds_mv(mats.cache.ds_fwd, x)
-    return mats.A @ x
+    return mv(mats.A, x)
 
 
 def _At_matvec(mats, z):
     if mats.cache.ds_bwd is not None:
         return ds_mv(mats.cache.ds_bwd, z)
-    return mats.A.T @ z
+    return mv(mT(mats.A), z)
 
 
 def _cholesky(G):
@@ -158,10 +177,10 @@ def solve(mats, diag_r, derived, rhs, warm_start=None, tol=None):
     ry = rhs[n:]
 
     if not isinstance(derived, tuple):  # pure path: float64 Cholesky
-        b = rx + mats.A.T @ (ry / r_y)
+        b = rx + mv(mT(mats.A), ry / r_y)
         x = torch.cholesky_solve(b[:, None], derived)[:, 0]
         its = 0
-        y = ((mats.A @ x) - ry) / r_y
+        y = (mv(mats.A, x) - ry) / r_y
     else:  # mixed: float32 inverse-apply + float64 refinement over K
         Ginv32, scale = derived
         f32, dtype = torch.float32, rhs.dtype
@@ -183,6 +202,8 @@ def precompute_batched(A, P, n_zero: int, ds: bool = False) -> DirectCache:
     A_z[b]'A_z[b] by batched products, and the splits of A, A' and K as
     (B, ., .) stacks when `ds` is set."""
     del P
+    if rowshard.is_row_sharded(A):
+        return _precompute_row_sharded(A, n_zero, ds)
     At = A.transpose(1, 2)
     K = torch.matmul(At, A)
     if n_zero:
@@ -272,18 +293,17 @@ def solve_batched(mats, diag_r, derived, rhs, warm_start=None, tol=None,
     ry = rhs[:, n:]
     cache = mats.cache
     if not isinstance(derived, tuple):  # pure path: float64 Cholesky
-        b = rx + bmv(mats.A.transpose(1, 2), ry / r_y)
+        b = rx + mv(mT(mats.A), ry / r_y)
         x = torch.cholesky_solve(b.unsqueeze(-1), derived).squeeze(-1)
         its = 0
-        y = (bmv(mats.A, x) - ry) / r_y
+        y = (mv(mats.A, x) - ry) / r_y
     else:  # mixed: float32 inverse-apply + float64 refinement over K
         Ginv32, scale = derived[:2]
         ds_G = derived[2] if len(derived) > 2 else None
         f32, dtype = torch.float32, rhs.dtype
         z = ry / r_y
-        b = rx + (dsmatvec.ds_matvec_batched(cache.ds_bwd, z)
-                  if cache.ds_bwd is not None
-                  else bmv(mats.A.transpose(1, 2), z))
+        b = rx + (ds_mv(cache.ds_bwd, z) if cache.ds_bwd is not None
+                  else mv(mT(mats.A), z))
         x = bmv(Ginv32, b.to(f32)).to(dtype)
         for _ in range(REFINE_PASSES):
             if ds_G is not None:
@@ -294,7 +314,7 @@ def solve_batched(mats, diag_r, derived, rhs, warm_start=None, tol=None,
                 r = b - _gram_matvec_batched(mats, diag_r, scale, x)
             x = x + bmv(Ginv32, r.to(f32)).to(dtype)
         its = REFINE_PASSES
-        ax = (dsmatvec.ds_matvec_batched(cache.ds_fwd, x)
-              if cache.ds_fwd is not None else bmv(mats.A, x))
+        ax = (ds_mv(cache.ds_fwd, x) if cache.ds_fwd is not None
+              else mv(mats.A, x))
         y = (ax - ry) / r_y
     return torch.cat([x, y], dim=1), its

@@ -28,6 +28,17 @@ path: the diagonal from its structure-aware column sums, its products
 through `matvec.mv`, its double-single applies through K2 (and K1 for its
 dense tails), `ops.sparse.ds_sparse_matvec`.
 
+A row-sharded A (`ops.rowshard.RowShardedA`, one problem or a batch)
+takes the same path too: the diagonal is summed over the model group
+(a rank's zero-cone rows weighted by their global index), the Schur
+product A' R_y^{-1} A x of every CG iteration is each rank's A_r' R_y,r^{-1}
+A_r x summed in one collective (`RowShardedA.schur_matvec`, and
+`ops.rowshard.ds_schur_matvec` on the kernels), and the right-hand side's
+A' z and the y-recovery's A x each take one. The CG blocks then run
+eagerly (`_pcg`): a collective cannot sit inside the CUDA graph that
+`_CGGraph` captures (gloo's host staging least of all), so the choice
+is made by the operand's type, not by a switch.
+
 Every function takes one problem (vectors (n,), 0-d scalars) or a batch
 (a leading axis B on every operand): the arithmetic is elementwise or a
 reduction over the last axis, and the products dispatch on the operand's
@@ -63,7 +74,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import config
-from ..ops import dsmatvec, sparse
+from ..ops import dsmatvec, rowshard, sparse
 from ..ops.dsmatvec import DsSplit
 from .matvec import ds_mv, mT, mv
 
@@ -102,6 +113,11 @@ def precompute(A, P, n_zero: int, ds: bool = False) -> IndirectCache:
     A SparseA's diagonal is its column sums with the zero-cone rows
     weighted 1000 (scs_tpu/linsys/indirect.py:56-72)."""
     del P
+    if rowshard.is_row_sharded(A):
+        d = A.diag_gram(n_zero)
+        if not ds:
+            return IndirectCache(d, None, None)
+        return IndirectCache(d, *A.split())
     sparse.require_operand(A)
     if sparse.is_sparse(A):
         rows = torch.arange(A.shape[0], device=A.device)
@@ -162,8 +178,11 @@ def _amax(r):
 def _mat_vec(A, P, diag_r, x):
     """(R_x + P + A' R_y^{-1} A) x in the operands' own precision."""
     m, n = A.shape[-2:]
-    z = mv(A, x) / diag_r[..., n:n + m]
-    y = mv(mT(A), z) + diag_r[..., :n] * x
+    if rowshard.is_row_sharded(A):
+        y = A.schur_matvec(x, diag_r[..., n:n + m]) + diag_r[..., :n] * x
+    else:
+        z = mv(A, x) / diag_r[..., n:n + m]
+        y = mv(mT(A), z) + diag_r[..., :n] * x
     if P is not None:
         y = y + mv(P, x)
     return y
@@ -183,8 +202,16 @@ def _schur_matvec(mats, diag_r, x):
     """(R_x + P + A' R_y^{-1} A) x with A x and A' z on the double-single
     kernels where the cache holds the splits."""
     m, n = mats.A.shape[-2:]
-    z = _A_matvec(mats, x) / diag_r[..., n:n + m]
-    y = _At_matvec(mats, z) + diag_r[..., :n] * x
+    cache = mats.cache
+    if cache.ds_fwd is None:
+        return _mat_vec(mats.A, mats.P, diag_r, x)
+    if isinstance(cache.ds_fwd, rowshard.RowShardedSplit):
+        y = rowshard.ds_schur_matvec(cache.ds_fwd, cache.ds_bwd, x,
+                                     diag_r[..., n:n + m])
+    else:
+        z = ds_mv(cache.ds_fwd, x) / diag_r[..., n:n + m]
+        y = ds_mv(cache.ds_bwd, z)
+    y = y + diag_r[..., :n] * x
     if mats.P is not None:
         y = y + mv(mats.P, x)
     return y
@@ -295,8 +322,10 @@ def _pcg(ops, M, s, b, max_its: int, tol, active=None,
     after no iteration). `read_first`: read the flags before the first
     iteration (worth it where a warm start may already be good enough).
     On a CUDA tensor the blocks of READ_EVERY iterations replay a CUDA
-    graph (`_CGGraph`); `eager` launches them one kernel at a time instead
+    graph (`_CGGraph`), except on a row-sharded operand, whose products
+    take collectives; `eager` launches them one kernel at a time instead
     (for comparisons only: nothing in the solver sets it)."""
+    eager = eager or rowshard.is_row_sharded(ops[0])
     if s is None:
         x = torch.zeros_like(b)
         r = b.clone()

@@ -1,8 +1,9 @@
 """Batched solves (counterpart of `scs_tpu/parallel`): the batched solvers
 of `batch`, and the batch axis over processes, one a card (`multihost`:
 `torch.distributed`, NCCL between cards and gloo on the CPU; `sharding`:
-the (data, model) mesh and each rank's slice of a batch). Row (model-axis)
-sharding is ROADMAP queue 1, item 16b."""
+the (data, model) mesh, each rank's slice of a batch and, with
+`shard_rows=True`, its rows of A over the "model" dimension, whose
+products cross ranks through `collectives`)."""
 
 from .batch import (BatchWorkspace, SolveResult, make_batch_solver,
                     make_chunked_batch_solver, make_pure_solver,

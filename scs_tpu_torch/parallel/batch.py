@@ -33,6 +33,14 @@ phase, as in the reference. Where a mixed solve has exp or power cones, or
 ran float32 state, every lane's dual block is re-projected in float64
 at the finish (`solver.moreau_repolish`).
 
+A may be row-sharded (`ops.rowshard.RowShardedA`, this rank's rows of
+every lane, from `parallel.shard_problem_batch(..., shard_rows=True)`):
+every entry point then solves its lanes with the rows spread over the
+model group, each rank holding every vector whole, and every rank of the
+group returns the same result (see `ops/rowshard.py`). The float32-state
+phase demotes the local rows like any tensor; its A' z sums the ranks'
+K3 pairs in float64.
+
 Every entry point solves on the card (`device="cuda"`) unless the caller
 passes `device="cpu"`, and raises without a card. `ds_split=True` builds
 the double-single operand splits on the CPU, where the mixed path then
@@ -57,12 +65,14 @@ from ..equilibrate import (equilibrate_batched, identity_scaling_batched,
                            unnormalize_xys_batched)
 from ..linsys import (Mats, get_backend, prepare_operands_batched,
                       resolve_ds_split, resolve_fast_f32, resolve_mixed)
+from ..ops.rowshard import is_row_sharded
 from ..solver import ProblemData, moreau_repolish
 from ..solver_batched import (BatchedIteration, BatchedState, Rows,
                               fresh_state, pack_warm_v_batched,
                               populate_residuals_batched, put_rows,
                               set_diag_r_batched, take_rows, tree_map)
 from ..types import ConeData, ConeSpec, Settings
+from ..validation import validate_row_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,10 +131,15 @@ def _parts(spec: ConeSpec, stg: Settings, device, ds_split):
 
     def init_fn(A, P, b, c, bu=None, bl=None):
         def put(t):
-            return None if t is None else torch.as_tensor(
-                t, dtype=dtype, device=dev)
+            if t is None:
+                return None
+            if is_row_sharded(t):
+                return t.to(dev).astype(dtype)
+            return torch.as_tensor(t, dtype=dtype, device=dev)
 
         A, P, b, c = put(A), put(P), put(b), put(c)
+        if is_row_sharded(A):
+            validate_row_sharded(A, b, c, spec)
         B, m, n = A.shape
         k = max(spec.bsize - 1, 0)
         bu = torch.zeros(B, k, dtype=dtype, device=dev) if bu is None \
@@ -378,7 +393,11 @@ def make_pure_solver(spec: ConeSpec, stg: Settings,
 
     def solve_fn(A, P, b, c, bu, bl) -> SolveResult:
         def one(t):
-            return None if t is None else torch.as_tensor(t)[None]
+            if t is None:
+                return None
+            if is_row_sharded(t):
+                return t.with_batch()
+            return torch.as_tensor(t)[None]
         res = solve_b(one(A), one(P), one(b), one(c), one(bu), one(bl))
         return SolveResult(**{f.name: getattr(res, f.name)[0]
                               for f in dataclasses.fields(SolveResult)})

@@ -18,6 +18,13 @@ Usage per process (the environment of `torchrun`, or arguments)::
     # every rank passes its LOCAL shard (the same shape on every rank);
     # res holds the global batch, in rank order, on this rank's device
 
+On a (data, model) mesh (`sharding.make_mesh(data=..., model=...)`)
+each rank passes its slice along "data" with its rows of A over "model"
+(`sharding.shard_problem_batch(..., shard_rows=True)`), and
+`make_sharded_batch_solver(..., axis_name="data")` gathers the results
+over "data" only: the ranks of one model group solve the same lanes and
+return the same bits.
+
 `python -m scs_tpu_torch.demo_multihost` runs one rank of a sharded
 solve under that environment.
 """
@@ -32,6 +39,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from . import collectives
 from .batch import SolveResult, _solve_args, make_batch_solver
 
 
@@ -81,6 +89,13 @@ def init_distributed(coordinator_address: Optional[str] = None,
             "MASTER_PORT, WORLD_SIZE and RANK)")
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    host = _address(coordinator_address).split("://")[1].rsplit(":", 1)[0]
+    if backend == "gloo" and host in ("127.0.0.1", "localhost"):
+        # every rank is on this host: gloo's pairs over the loopback
+        # device, not the interface the host name resolves to (on an
+        # H100's host a call took ~40 % less, tools/
+        # torch_gloo_cuda_probe.py)
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     if backend == "nccl":
         local = local_device_ids
         if isinstance(local, (list, tuple)):
@@ -109,11 +124,20 @@ def mesh_device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def local_device() -> torch.device:
-    """This rank's device: its card under NCCL, the CPU under gloo."""
+def local_device(device=None) -> torch.device:
+    """This rank's device: `device` where given (a gloo group may solve on
+    a card), else its card under NCCL and the CPU under gloo."""
+    if device is not None:
+        return torch.device(device)
     if mesh_device_type() == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """The device the mesh's ranks solve on: the one `sharding.make_mesh`
+    recorded, else `local_device()`."""
+    return getattr(mesh, "solve_device", None) or local_device()
 
 
 def make_global_mesh(axis_name: str = "batch") -> DeviceMesh:
@@ -130,21 +154,19 @@ def make_sharded_batch_solver(spec, stg, mesh: DeviceMesh,
     `axis_name` dimension.
 
     Each rank passes its LOCAL shard (the same shape on every rank) of
-    (A, [P], b, c, bu, bl); it is solved by `make_batch_solver` on the
-    rank's device, and every field of the SolveResult is gathered over
-    the dimension's group, so that every rank returns the global batch in
-    rank order (`local_batch_slice` gives each rank's part).
+    (A, [P], b, c, bu, bl) (A may be its rows over a "model" dimension,
+    `sharding.shard_problem_batch(..., shard_rows=True)`); it is solved
+    by `make_batch_solver` on the mesh's device (`mesh_device`),
+    and every field of the SolveResult is gathered over the dimension's
+    group, so that every rank returns the global batch in rank order
+    (`local_batch_slice` gives each rank's part).
     """
     group = mesh.get_group(axis_name)
-    dev = local_device()
+    dev = mesh_device(mesh)
     solve = make_batch_solver(spec, stg, max_iters, has_P=True, device=dev)
 
     def gather(t: torch.Tensor) -> torch.Tensor:
-        t = t.contiguous()
-        parts = [torch.empty_like(t)
-                 for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, t, group=group)
-        return torch.cat(parts)
+        return torch.cat(collectives.all_gather(t, group))
 
     def solver(*local_arrays) -> SolveResult:
         res = solve(*_solve_args(has_P, local_arrays))

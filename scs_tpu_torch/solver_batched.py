@@ -57,8 +57,8 @@ import torch
 from . import accel, config
 from .cones.project import proj_dual_cone_batched
 from .linsys import Mats, get_backend
-from .linsys.matvec import bmv
-from .ops import dsmatvec, dsreduce
+from .linsys.matvec import ds_mv, mT, mv
+from .ops import dsreduce, rowshard
 from .solver import ProblemData, Residuals, _safediv_pos
 from .types import ConeSpec, Settings
 
@@ -220,8 +220,8 @@ def root_plus_batched(g, p, mu, eta, diag_r, nm: int, acc: bool = False):
 def _res_matvec(data: ProblemData, x, transpose: bool):
     ds = getattr(data.lin_cache, "ds_bwd" if transpose else "ds_fwd", None)
     if ds is not None:
-        return dsmatvec.ds_matvec_batched(ds, x)
-    return bmv(data.A.transpose(1, 2) if transpose else data.A, x)
+        return ds_mv(ds, x)
+    return mv(mT(data.A) if transpose else data.A, x)
 
 
 def populate_residuals_batched(data: ProblemData, spec: ConeSpec, u, rsk,
@@ -240,17 +240,17 @@ def populate_residuals_batched(data: ProblemData, spec: ConeSpec, u, rsk,
     tau = torch.abs(u[:, n + m])
     kap = torch.abs(rsk[:, n + m])
 
-    ax = _res_matvec(data, x, False) if use_ds else bmv(data.A, x)
+    ax = _res_matvec(data, x, False) if use_ds else mv(data.A, x)
     ax_s = ax + s
     ax_s_btau = ax_s - tau[:, None] * data.b
     if data.P is not None:
-        px = bmv(data.P, x)
+        px = mv(data.P, x)
         xt_p_x_tau = _dot(px, x)
     else:
         px = torch.zeros_like(x)
         xt_p_x_tau = torch.zeros_like(tau)
     aty = (_res_matvec(data, y, True) if use_ds
-           else bmv(data.A.transpose(1, 2), y))
+           else mv(mT(data.A), y))
     px_aty_ctau = px + aty + tau[:, None] * data.c
     bty_tau = _dot(y, data.b)
     ctx_tau = _dot(x, data.c)
@@ -353,6 +353,16 @@ def fresh_state(v, diag_r, g, derived, scale, mem: int) -> BatchedState:
         accepted_accel=zi, rejected_accel=zi,
         iter=zh, status=zh, cadence=zh, last_scale_update_iter=zh,
         scale_updates=zh, tot_cg_its=zi)
+
+
+def _past(deadline: float, data: ProblemData) -> bool:
+    """Whether the time limit has passed; with a row-sharded A, on any
+    rank of its model group (each rank's clock differs, and the ranks
+    must stop at the same step)."""
+    late = time.perf_counter() >= deadline
+    if rowshard.is_row_sharded(data.A):
+        late = data.A.any_rank(late)
+    return late
 
 
 class BatchedIteration:
@@ -631,8 +641,7 @@ class BatchedIteration:
                         return st, None, k - k0
                     if k_budget is not None and k - k0 >= k_budget:
                         return st, None, k - k0
-                    if deadline is not None and (time.perf_counter()
-                                                 >= deadline):
+                    if deadline is not None and _past(deadline, data):
                         return st, "timeout", k - k0
                 if prev is None or not torch.equal(alive, prev):
                     prev, act_dev = alive, to_device(alive, st.v.device)

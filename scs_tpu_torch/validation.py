@@ -78,6 +78,26 @@ def validate(problem: Problem, spec: ConeSpec, cone_data, stg: Settings) -> None
     validate_settings(stg)
 
 
+def validate_row_sharded(A, b, c, spec: ConeSpec) -> None:
+    """The batched solvers' check of a row-sharded A (a rank's rows of a
+    (B, m, n) stack, `ops.rowshard.RowShardedA`): b (B, m) and c (B, n)
+    whole on every rank, as `parallel.shard_problem_batch` returns them
+    (the JAX package shards b's entries with A's rows; the port keeps
+    every vector whole), and the cones' dimensions summing to the global
+    m."""
+    B, m, n = A.shape
+    if tuple(b.shape) != (B, m):
+        raise ValidationError(
+            f"b must hold all {m} rows of every lane, shape ({B}, {m}), "
+            f"with A's rows sharded; got {tuple(b.shape)}")
+    if tuple(c.shape) != (B, n):
+        raise ValidationError(
+            f"c must have shape ({B}, {n}), got {tuple(c.shape)}")
+    if spec.dims() != m:
+        raise ValidationError(
+            f"cone dimensions {spec.dims()} do not match rows of A ({m})")
+
+
 def validate_cones(spec: ConeSpec, cone_data, m: int) -> None:
     for name, val in (("z", spec.z), ("l", spec.l), ("bsize", spec.bsize),
                       ("ep", spec.ep), ("ed", spec.ed)):

@@ -952,3 +952,56 @@ def test_diff_through_graph_cones_on_the_card_matches_the_cpu(cuda, name):
     mask = torch.tensor([True, False], device=cuda)
     with pytest.raises(RuntimeError, match="autograd"):
         graphs.run(exp.proj_exp_batch, (seg, mask))
+
+
+@pytest.mark.parametrize("shape", [(4096, 2048), (2048, 4096)])
+def test_ds_matvec_kernel_at_the_row_shard_shapes(cuda, shape):
+    """K1 on one rank's rows of the large SOCP (8192 x 2048 over two
+    ranks) and on their transpose, against its plain version: 1e-12 of
+    max |A| |x|."""
+    m, n = shape
+    rng = np.random.RandomState(m - n)
+    A = torch.tensor(rng.randn(m, n), device=cuda)
+    x = torch.tensor(rng.randn(n), device=cuda)
+    split = dsmatvec.split_operand(A)
+    before = dsmatvec.launches
+    y = dsmatvec.ds_matvec(split, x)
+    torch.cuda.synchronize()
+    assert dsmatvec.launches == before + 1
+    ref = dsmatvec.ds_matvec_plain(split, x)
+    assert float((y - ref).abs().max()) <= 1e-12 * float(
+        (A.abs() @ x.abs()).max())
+
+
+def test_row_shard_k3_pairs_sum_in_float64_on_the_card(cuda):
+    """The float32-state A' z of a row-sharded batch: two shards' K3 pairs
+    composed in float64 and summed by hand, and the same through a
+    one-rank gloo group (`RowShardedSplit.sum64`, CUDA tensors through
+    gloo), against the float64 product of the exact hi + lo: 1e-12 of
+    max |A'| |z| in every lane."""
+    from scs_tpu_torch.ops import rowshard
+    from scs_tpu_torch.parallel import multihost
+    rng = np.random.RandomState(13)
+    A = torch.tensor(rng.randn(16, 201, 100), device=cuda)
+    z = torch.tensor(rng.randn(16, 201), device=cuda).to(torch.float32)
+    full = dsmatvec.split_operand(A.transpose(1, 2))
+    exact = full.hi.double() + full.lo.double()
+    z64 = z.double().unsqueeze(-1)
+    ref = torch.matmul(exact, z64).squeeze(-1)
+    tol = 1e-12 * torch.matmul(exact.abs(), z64.abs()).squeeze(-1).amax(1)
+    before = dsmatvec.pair_launches
+    halves = [rowshard.shard_rows(A, None, rank=r, size=2).split()[1]
+              for r in range(2)]
+    got = sum(rowshard._local_ds_partial(h.split, h._rows(z))
+              for h in halves)
+    torch.cuda.synchronize()
+    assert dsmatvec.pair_launches == before + 2
+    assert bool(((got - ref).abs().amax(1) <= tol).all())
+    multihost._ensure_group()
+    try:
+        one = rowshard.shard_rows(A, torch.distributed.group.WORLD)
+        got1 = one.split()[1].sum64(z)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert got1.is_cuda and got1.dtype == torch.float64
+    assert bool(((got1 - ref).abs().amax(1) <= tol).all())
