@@ -86,19 +86,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      forced polish, every lane held to SCS's termination test and to the
      pure float64 run;
  14. the sparse problems (`demo_sparse`, blocked-ELL operands,
-     `ops/sparse.py`): K2 on the full instance's A (12500 block-rows of 8
-     x 256) and A' (8000 of 8 x 768), on a band of 75000 block-rows (more
-     than the grid's 65535: two launches) and, with K1 on the dense tails,
-     on the tails fixture at 4000 x 3000, each against its plain version
-     on the card and a float64 scipy product within 1e-13 (1 + max |A||x|),
-     with times of K2, the gather, the plain version, the whole apply and
-     torch.mv on a float64 CSR tensor beside K2's bound; the full instance
-     (K = 500 stages: 100000 x 64000, 25.57M nonzeros, seed 0, eps 1e-4)
-     through the indirect backend mixed (K2 counted) and pure float64,
-     each held to its planted optimum and SCS's termination test; the cut
-     instance (SPARSE_CUT_STAGES stages, n = 8192, the widths unchanged)
-     through the direct backend pure and mixed, sparse against dense, and
-     through the indirect backend in pure float64 twice, bit for bit;
+     `ops/sparse.py`): kernel K2s (`csrc/ellmatvec.cu`) in its three
+     kinds on the full instance's A (12500 block-rows of 8 x 256) and A'
+     (8000 of 8 x 768, re-tiled at its chosen width) and, with K1 on the
+     dense tails, on the tails fixture at 4000 x 3000: the (hi, lo) pair
+     on the double-single split, float32 on the float32 shadow, float64 on
+     the operand's own tiles, each apply one K2s launch and no gather of
+     x, each against its plain version on the card and a float64 scipy
+     product within 1e-13 (1 + max |A||x|) (float32: 1e-5), with times of
+     K2s, the plain version, the whole apply and torch.mv on a CSR tensor
+     of the kind's dtype beside K2s's bound (the nonzeros, x and y read or
+     written once); the pair on a band of 75000 block-rows (beyond K2's
+     grid of 65535: one launch); the full instance (K = 500 stages: 100000
+     x 64000, 25.57M nonzeros, seed 0, eps 1e-4) through the indirect
+     backend mixed (K2s pair and float32 counted) and pure float64 (K2s
+     float64 counted), no gather of x, each held to its planted optimum
+     and SCS's termination test; the cut instance (SPARSE_CUT_STAGES
+     stages, n = 8192, the widths unchanged) through the direct backend
+     pure and mixed, sparse against dense, and through the indirect
+     backend in pure float64 twice, bit for bit;
  15. the entry points (`entry_phase`): the tracked-rank PSD projection
      (`Settings.psd_rank`) on the planted low-rank SDP of
      `models.planted_lowrank_sdp` (one PSD block of 400, rank 4, n = 200,
@@ -180,8 +186,9 @@ Each phase ends with a line `phase N done at T s` (seconds since the
 start). The whole run, the build included, has to end inside 1200 s on
 one H100: that is the time a caller of this script gives it.
 The second-to-last line is a JSON object with one entry per kernel (K1-K7),
-per sparse use of K2 and K1 (phase 14) and per row-sharded use of K1-K3
-(phase 17), the last line {"ok": true, "device": {...}}.
+per kind of K2s and the sparse direct use of K1 (phase 14) and per
+row-sharded use of K1-K3 (phase 17), the last line {"ok": true,
+"device": {...}}.
 """
 
 import atexit
@@ -221,8 +228,8 @@ from scs_tpu_torch.models import mixed_cones, psd_cones, spectral_cones
 from scs_tpu_torch.models import diff_instances, planted_complementary
 from scs_tpu_torch.models import planted_lowrank_sdp
 from scs_tpu_torch.types import ConeData
-from scs_tpu_torch.ops import (_build, dsmatmul, dsmatvec, logdet, ozaki,
-                               roofline, sparse, sumlargest)
+from scs_tpu_torch.ops import (_build, dsmatmul, dsmatvec, ellmatvec,
+                               logdet, ozaki, roofline, sparse, sumlargest)
 from scs_tpu_torch.parallel import (BatchWorkspace,
                                     make_chunked_batch_solver,
                                     make_solver_parts)
@@ -2112,8 +2119,9 @@ K4_SHAPES = [((2, 37, 53), (2, 53, 29)),                # the tests' shape
 # 64 x 128 = 8192, the widths unchanged. The direct backend's dense Gram
 # at the full n = 64000 would take 33 GB, its split and factor 66 GB more.
 SPARSE_CUT_STAGES = 64
-# the operand beyond K2's grid limit: 75000 block-rows of 8 (600000 rows),
-# two tiles of 128 each, a band
+# the operand beyond K2's grid limit (gridDim.z, 65535), which K2s's
+# gridDim.x takes in one launch: 75000 block-rows of 8 (600000 rows), two
+# tiles of 128 each, a band
 BAND_BLOCK_ROWS = 75000
 
 
@@ -2124,77 +2132,143 @@ def _scipy_csc(A):
     return sp.csc_matrix((vals, rows, colptr), shape=A.shape)
 
 
-def _csr_on_card(M):
-    """A scipy matrix as a float64 torch CSR tensor on the card (the
+def _csr_on_card(M, dtype=torch.float64):
+    """A scipy matrix as a torch CSR tensor of `dtype` on the card (the
     library call's operand, timed only)."""
     M = M.tocsr()
     return torch.sparse_csr_tensor(
         torch.as_tensor(M.indptr, device="cuda"),
         torch.as_tensor(M.indices, device="cuda"),
-        torch.as_tensor(M.data, device="cuda"), M.shape,
+        torch.as_tensor(M.data, dtype=dtype, device="cuda"), M.shape,
         check_invariants=True)
 
 
-def _k2_bound(ds) -> tuple:
-    """K2's least time on a blocked-ELL pair: the split's 8 bytes a stored
-    element, the gathered x and y (8 bytes an entry) at 3.35 TB/s, or 3
-    float64 operations a stored element (the add of hi and lo, then an
-    FMA) at 34 TFLOP/s; (ms, "bytes" or "operations")."""
-    nbr, bm, K = ds.hi.shape
-    nbytes = 8 * nbr * bm * K + 8 * nbr * K + 8 * nbr * bm
-    flops = 3 * nbr * bm * K
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS
+def _k2s_bound(nnz: int, m: int, n: int, kind: str) -> tuple:
+    """K2s's least time for these inputs: each nonzero read once (8 bytes
+    for the pair and float64, 4 for float32) and x read and y written
+    once (8 or 4 bytes an entry) at 3.35 TB/s, or its operations (3
+    float64 a nonzero for the pair: hi + lo, then an FMA; 2 for float64;
+    2 at the float32 rate for float32); (ms, "bytes" or "operations").
+    The layout's index bytes are not in it (each row lists them)."""
+    elem = 4 if kind == "f32" else 8
+    t_b = elem * (nnz + m + n) / HBM_BYTES_PER_S
+    t_f = ((3 if kind == "pair" else 2) * nnz
+           / (FP32_FLOPS if kind == "f32" else FP64_FLOPS))
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
+class _GatherSpy:
+    """Counts the calls of `sparse._gather_x` (the blocked-ELL gather of x
+    that the plain versions make and K2s does not) while it is entered."""
+
+    def __enter__(self):
+        self.calls, self._orig = 0, sparse._gather_x
+
+        def spy(*args):
+            self.calls += 1
+            return self._orig(*args)
+        sparse._gather_x = spy
+        return self
+
+    def __exit__(self, *exc):
+        sparse._gather_x = self._orig
+
+
+def _k2s_counts() -> tuple:
+    return (ellmatvec.pair_launches, ellmatvec.f32_launches,
+            ellmatvec.f64_launches, dsmatvec.launches,
+            dsmatvec.batched_launches)
+
+
+def _k2s_form(label: str, kind: str, apply, kernel, plain, ell, M, x,
+              nnz: int, n_tails: int) -> dict:
+    """One kind of K2s on one direction: the whole apply (K2s on the tiles
+    and the tails) launches K2s once (and the tails' K1 once each in the
+    pair) and gathers no x, within tol of scipy's float64 product; K2s
+    alone within tol of its plain version on the card; times of K2s, its
+    plain version, the whole apply, and torch.mv on a CSR tensor of the
+    kind's dtype (float64 for the pair), beside the bound. tol is 1e-13
+    (1 + max |A||x|), 1e-5 (1 + max |A||x|) for float32."""
+    xh = x.double().cpu().numpy()
+    tol = (1e-5 if kind == "f32" else 1e-13) * (
+        1.0 + float((abs(M) @ np.abs(xh)).max()))
+    before = _k2s_counts()
+    with _GatherSpy() as spy:
+        y = apply()
+        torch.cuda.synchronize()
+    got = [a - b for a, b in zip(_k2s_counts(), before)]
+    want = [int(kind == "pair"), int(kind == "f32"), int(kind == "f64"),
+            n_tails if kind == "pair" else 0, 0]
+    check(got == want and spy.calls == 0, f"{label} {kind}: launches (K2s "
+          f"pair, f32, f64, K1, K2) {got}, want {want}; {spy.calls} "
+          f"gathers of x")
+    err = float((kernel().double() - plain().double()).abs().max())
+    err_scipy = float(np.abs(y.double().cpu().numpy() - M @ xh).max())
+    check(math.isfinite(err) and err <= tol, f"{label} {kind}: max|kernel -"
+          f" plain| = {err:.3e} > {tol:.3e}")
+    check(err_scipy <= tol, f"{label} {kind}: max|apply - scipy| = "
+          f"{err_scipy:.3e} > {tol:.3e}")
+    m, n = M.shape
+    bound, by = _k2s_bound(nnz, m, n, kind)
+    tiles = int(ell.count.sum())
+    out = {"kind": kind, "bn": ell.bn, "kmax": ell.kmax, "tiles": tiles,
+           "stored": tiles * ell.bm * ell.bn, "nnz": nnz,
+           "index_bytes": 4 * (tiles + ell.idx.shape[0]),
+           "max_abs_err": max(err, err_scipy), "tol": tol,
+           "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+           "apply_ms": median_ms(apply), "bound_ms": bound, "bound_by": by}
+    try:
+        csr = _csr_on_card(M, x.dtype)
+        out["library_ms"] = median_ms(lambda: torch.mv(csr, x))
+    except RuntimeError as e:          # no CSR product in this build
+        out["library_ms"] = None
+        print(f"{label}: torch.mv on a {x.dtype} CSR tensor failed: {e}")
+    print(f"sparse K2s {kind} {label} ({m} x {n}, {nnz} nonzeros in the "
+          f"tiles; bn {ell.bn}, kmax {ell.kmax}, {tiles} tiles, "
+          f"{out['stored']} elements read, {out['index_bytes']} index "
+          f"bytes): max|kernel - plain| {err:.3e}, max|apply - scipy| "
+          f"{err_scipy:.3e} (tol {tol:.3e}); K2s {out['ms']:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}), {100 * bound / out['ms']:.0f}% of bound, "
+          f"plain {out['plain_ms']:.4f} ms, whole apply "
+          f"{out['apply_ms']:.4f} ms, torch.mv ({x.dtype} CSR) "
+          f"{out['library_ms']} ms")
+    return out
+
+
 def sparse_kernel_case(label: str, S, M, seed: int) -> dict:
-    """K2 on a sparse operand's tiles (and K1 on its dense tails) against
-    the plain versions on the card and against M @ x, M the same matrix in
-    float64 scipy CSC/CSR on the host, both within 1e-13 (1 + max |A||x|);
-    times (device, median of REPS L2-flushed calls): K2 alone on the
-    gathered x, the gather, K2's plain version, the whole apply
-    (`ds_sparse_matvec`: gather, K2, the tails' K1), the dense tails' K1,
-    and torch.mv on a float64 CSR tensor of the matrix."""
+    """K2s on one direction of a sparse operand (S's forward direction; M
+    the same matrix in float64 scipy CSC/CSR on the host), each kind
+    (`_k2s_form`): the pair on the double-single split (re-tiled at its
+    chosen width) with the tails' K1, float32 on the float32 shadow
+    (`SparseA.retiled`), float64 on the operand's own tiles (the pure
+    path); and the dense tails' K1 alone against torch.mv."""
     ds = sparse.ds_split_sparse(S)
+    sh = S.retiled(torch.float32)
     m, n = S.shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(n, generator=gen, dtype=torch.float64, device="cuda")
-    xh = x.cpu().numpy()
-    before = (dsmatvec.launches, dsmatvec.batched_launches)
-    y = sparse.ds_sparse_matvec(ds, x)
-    torch.cuda.synchronize()
-    k1 = dsmatvec.launches - before[0]
-    k2 = dsmatvec.batched_launches - before[1]
-    ref = sparse.ds_sparse_matvec(ds, x, plain=True)
-    want = M @ xh
-    absax = float((abs(M) @ np.abs(xh)).max())
-    tol = 1e-13 * (1.0 + absax)
-    err = float((y - ref).abs().max())
-    err_scipy = float(np.abs(y.cpu().numpy() - want).max())
+    x32 = x.float()
+    nnz = int((S.fwd.data != 0).sum())
     n_tails = int(ds.rows_split is not None) + int(ds.cols_split is not None)
-    check(k2 == 1 and k1 == n_tails, f"{label}: {k2} K2 and {k1} K1 "
-          f"launches for one apply with {n_tails} dense tails")
-    check(math.isfinite(err) and err <= tol, f"{label}: max|kernel - plain| "
-          f"= {err:.3e} > {tol:.3e}")
-    check(err_scipy <= tol, f"{label}: max|kernel - scipy CSR| = "
-          f"{err_scipy:.3e} > {tol:.3e}")
-    split = dsmatvec.DsSplit(ds.ell.hi, ds.ell.lo)
-    xg = sparse._gather_x(ds.ell, x)
-    nbr, bm, K = ds.ell.hi.shape
-    cfg = dsmatvec.launch_config(nbr, bm, K, K, bm * K, K, (
-        ds.ell.hi.data_ptr(), ds.ell.lo.data_ptr(), xg.data_ptr()), 8)
-    bound, by = _k2_bound(ds.ell)
-    out = {
-        "label": label, "shape": [nbr, bm, K], "mn": [m, n],
-        "max_abs_err": max(err, err_scipy), "err_plain": err,
-        "err_scipy": err_scipy, "tol": tol, "config": cfg._asdict(),
-        "ms": median_ms(lambda: dsmatvec.ds_matvec_batched(split, xg)),
-        "gather_ms": median_ms(lambda: sparse._gather_x(ds.ell, x)),
-        "plain_ms": median_ms(
-            lambda: dsmatvec.ds_matvec_batched_plain(split, xg)),
-        "apply_ms": median_ms(lambda: sparse.ds_sparse_matvec(ds, x)),
-        "bound_ms": bound, "bound_by": by, "tails_ms": [],
-    }
+    out = {"label": label, "mn": [m, n],
+           "own_tiles": list(S.fwd.data.shape),
+           "split_elements": ds.ell.hi.numel(),
+           "padded_split_elements": S.fwd.data.numel()}
+    out["pair"] = _k2s_form(
+        label, "pair", lambda: sparse.ds_sparse_matvec(ds, x),
+        lambda: sparse.ds_ell_matvec(ds.ell, x),
+        lambda: sparse.ds_ell_matvec(ds.ell, x, plain=True), ds.ell, M, x,
+        nnz, n_tails)
+    out["f32"] = _k2s_form(
+        label, "f32", lambda: sh @ x32,
+        lambda: sparse.ell_matvec(sh.fwd, x32),
+        lambda: sparse.ell_matvec_plain(sh.fwd, x32), sh.fwd, M, x32, nnz,
+        n_tails)
+    out["f64"] = _k2s_form(
+        label, "f64", lambda: S @ x, lambda: sparse.ell_matvec(S.fwd, x),
+        lambda: sparse.ell_matvec_plain(S.fwd, x), S.fwd, M, x, nnz,
+        n_tails)
+    out["tails_ms"] = []
     for tail in (ds.rows_split, ds.cols_split):
         if tail is not None:
             v = x if tail is ds.rows_split else x.index_select(
@@ -2207,31 +2281,21 @@ def sparse_kernel_case(label: str, S, M, seed: int) -> dict:
             out["tails_ms"].append(
                 [list(tail.hi.shape),
                  median_ms(lambda: dsmatvec.ds_matvec(tail, v)),
+                 median_ms(lambda: dsmatvec.ds_matvec_plain(tail, v)),
                  median_ms(lambda: torch.mv(T, v)),
                  8 * (rows * cols + rows + cols) / HBM_BYTES_PER_S * 1e3])
-    try:
-        csr = _csr_on_card(M)
-        out["library_ms"] = median_ms(lambda: torch.mv(csr, x))
-    except RuntimeError as e:          # no CSR product in this build
-        out["library_ms"] = None
-        print(f"{label}: torch.mv on a float64 CSR tensor failed: {e}")
-    print(f"sparse K2 {label} ({m} x {n}, tiles {nbr}x{bm}x{K}, launch "
-          f"config {cfg._asdict()}): max|kernel - plain| {err:.3e}, "
-          f"max|kernel - scipy| {err_scipy:.3e} (tol {tol:.3e}); K2 "
-          f"{out['ms']:.4f} ms, bound {bound:.4f} ms ({by}), "
-          f"{100 * bound / out['ms']:.0f}% of bound, gather "
-          f"{out['gather_ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
-          f"whole apply {out['apply_ms']:.4f} ms, tails K1 [shape, ms, "
-          f"torch.mv ms, bound ms (bytes)] {out['tails_ms']}, torch.mv "
-          f"(float64 CSR) "
-          f"{out['library_ms']} ms")
+    print(f"sparse {label}: own tiles {out['own_tiles']}, the pair's split "
+          f"{out['split_elements']} elements (the padded split of the own "
+          f"tiles: {out['padded_split_elements']}); tails K1 [shape, ms, "
+          f"plain ms, torch.mv ms, bound ms (bytes)] {out['tails_ms']}")
     return out
 
 
 def k2_beyond_grid_case(seed: int) -> dict:
-    """K2 on a banded operand of BAND_BLOCK_ROWS block-rows (more than
-    gridDim.z's 65535: the wrapper launches in chunks) against its plain
-    version, within 1e-13 (1 + max |A||x|)."""
+    """K2s (the pair) on a banded operand of BAND_BLOCK_ROWS block-rows
+    (more than the 65535 that gridDim.z allowed K2: one launch now, the
+    block-rows on gridDim.x) against its plain version, within 1e-13 (1 +
+    max |A||x|)."""
     nbr, bm, bn, kmax = BAND_BLOCK_ROWS, 8, 128, 2
     m = n = nbr * bm
     ncb = -(-n // bn)
@@ -2245,10 +2309,11 @@ def k2_beyond_grid_case(seed: int) -> dict:
                                                kmax))
     del data
     x = torch.randn(n, generator=gen, dtype=torch.float64, device="cuda")
-    before = dsmatvec.batched_launches
-    y = sparse.ds_ell_matvec(ds, x)
-    torch.cuda.synchronize()
-    launches = dsmatvec.batched_launches - before
+    before = ellmatvec.pair_launches
+    with _GatherSpy() as spy:
+        y = sparse.ds_ell_matvec(ds, x)
+        torch.cuda.synchronize()
+    launches = ellmatvec.pair_launches - before
     ref = sparse.ds_ell_matvec(ds, x, plain=True)
     A64 = ds.hi.double() + ds.lo.double()
     absax = float(torch.bmm(A64.abs(), sparse._gather_x(
@@ -2256,13 +2321,13 @@ def k2_beyond_grid_case(seed: int) -> dict:
     del A64
     err = float((y - ref).abs().max())
     tol = 1e-13 * (1.0 + absax)
-    print(f"sparse K2 band beyond the grid ({m} rows, {nbr} block-rows, "
-          f"{ds.hi.numel() * 8 / 1e9:.2f} GB of split): {launches} launches "
-          f"(chunks {dsmatvec.batch_chunks(nbr)}), max|kernel - plain| "
-          f"{err:.3e} (tol {tol:.3e})")
-    check(launches == len(dsmatvec.batch_chunks(nbr)) == 2,
-          f"band beyond the grid: {launches} K2 launches, not 2 chunks")
-    check(math.isfinite(err) and err <= tol, f"band beyond the grid: "
+    print(f"sparse K2s band beyond K2's grid ({m} rows, {nbr} block-rows, "
+          f"bn {ds.bn}, {ds.hi.numel() * 8 / 1e9:.2f} GB of split): "
+          f"{launches} launch, {spy.calls} gathers of x, max|kernel - "
+          f"plain| {err:.3e} (tol {tol:.3e})")
+    check(launches == 1 and spy.calls == 0, f"band beyond K2's grid: "
+          f"{launches} K2s launches, {spy.calls} gathers, not one launch")
+    check(math.isfinite(err) and err <= tol, f"band beyond K2's grid: "
           f"max|kernel - plain| = {err:.3e} > {tol:.3e}")
     return {"max_abs_err": err, "launches": launches}
 
@@ -2306,20 +2371,27 @@ def sparse_termination_failures(A, b, c, sol, stg) -> list:
 def sparse_solve(prob, spec, opt: float, label: str, stg) -> dict:
     """One sparse problem through Workspace on the card, the counts set to
     0 just before: status, iterations, CG iterations, setup and solve ms,
-    K2 and K1 launches, host reads; gated on status `solved`, SCS's
-    termination test recomputed in float64 and the planted optimum within
-    1e-3 (1 + |opt|)."""
+    K2s launches of each kind (eager; `ellmatvec.captured` counts those
+    captured into the CG's graphs, each replay then runs them again), K1
+    and K2 launches, gathers of x, host reads; gated on status `solved`,
+    SCS's termination test recomputed in float64 and the planted optimum
+    within 1e-3 (1 + |opt|)."""
     torch.cuda.synchronize()
-    dsmatvec.launches = 0
-    dsmatvec.batched_launches = 0
+    dsmatvec.launches = dsmatvec.batched_launches = 0
+    ellmatvec.pair_launches = ellmatvec.f32_launches = 0
+    ellmatvec.f64_launches = ellmatvec.captured = 0
     indirect.host_reads = 0
     indirect.refine_passes = 0
-    ws = Workspace(prob, spec, None, stg)
-    sol, info = ws.solve()
-    torch.cuda.synchronize()
+    with _GatherSpy() as spy:
+        ws = Workspace(prob, spec, None, stg)
+        sol, info = ws.solve()
+        torch.cuda.synchronize()
     out = {"iter": info.iter, "cg": ws.tot_cg_its, "mixed": ws._mixed,
            "setup_ms": info.setup_time, "solve_ms": info.solve_time,
            "k2": dsmatvec.batched_launches, "k1": dsmatvec.launches,
+           "pair": ellmatvec.pair_launches, "f32": ellmatvec.f32_launches,
+           "f64": ellmatvec.f64_launches, "captured": ellmatvec.captured,
+           "gathers": spy.calls,
            "reads": indirect.host_reads, "passes": indirect.refine_passes,
            "status": info.status, "pobj": info.pobj,
            "digest": _digest(sol.x, sol.y, sol.s)}
@@ -2328,14 +2400,19 @@ def sparse_solve(prob, spec, opt: float, label: str, stg) -> dict:
     print(f"{label}: {info.status}, {info.iter} iterations, {ws.tot_cg_its} "
           f"CG iterations ({ws.tot_cg_its / it:.1f} per iteration), setup "
           f"{info.setup_time:.1f} ms, solve {info.solve_time:.1f} ms, "
-          f"{info.solve_time / it:.3f} ms/iteration, K2 launches {out['k2']} "
-          f"({out['k2'] / it:.2f} per iteration), K1 launches {out['k1']}, "
-          f"host reads {out['reads']} ({out['reads'] / it:.2f} per "
-          f"iteration), refinement passes {out['passes']}, pobj "
-          f"{info.pobj!r} (planted {opt!r}, rel err {err:.2e}), peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{info.solve_time / it:.3f} ms/iteration, K2s launches pair "
+          f"{out['pair']} ({out['pair'] / it:.2f} per iteration), float32 "
+          f"{out['f32']}, float64 {out['f64']} (captured into CUDA graphs "
+          f"{out['captured']}), K1 launches {out['k1']}, K2 {out['k2']}, "
+          f"gathers of x {out['gathers']}, host reads {out['reads']} "
+          f"({out['reads'] / it:.2f} per iteration), refinement passes "
+          f"{out['passes']}, pobj {info.pobj!r} (planted {opt!r}, rel err "
+          f"{err:.2e}), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(info.status == "solved", f"{label}: status {info.status}")
     check(err <= 1e-3, f"{label}: objective error {err:.2e}")
+    check(out["k2"] == 0 and out["gathers"] == 0, f"{label}: {out['k2']} "
+          f"K2 launches, {out['gathers']} gathers of x on a sparse operand")
     A = prob.A.to("cuda")
     fails = sparse_termination_failures(A, prob.b.cuda(), prob.c.cuda(),
                                         sol, stg)
@@ -2378,11 +2455,13 @@ def sparse_phase(card: str, stages: int = 500) -> dict:
                                      "size indirect pure f64",
                                      dataclasses.replace(
                                          stg, mixed_precision=False))}
-    mx = full["mixed"]
-    check(mx["mixed"] and mx["k2"] >= 2 * mx["iter"], f"demo_sparse mixed: "
-          f"not mixed, or {mx['k2']} K2 launches < 2 x {mx['iter']}")
-    check(full["pure f64"]["k2"] == full["pure f64"]["k1"] == 0,
-          "demo_sparse pure f64 launched K1 or K2")
+    mx, pu = full["mixed"], full["pure f64"]
+    check(mx["mixed"] and mx["pair"] >= 2 * mx["iter"] and mx["f32"] > 0,
+          f"demo_sparse mixed: not mixed, or {mx['pair']} K2s pair launches"
+          f" < 2 x {mx['iter']}, or {mx['f32']} float32 ones")
+    check(pu["f64"] > 0 and pu["pair"] == pu["f32"] == pu["k1"] == 0,
+          f"demo_sparse pure f64: K2s float64 {pu['f64']} launches, pair "
+          f"{pu['pair']}, float32 {pu['f32']}, K1 {pu['k1']}")
     print(f"phase 14 full-size solves done at {time.perf_counter() - t0:.1f}"
           f" s")
 
@@ -2410,9 +2489,13 @@ def sparse_phase(card: str, stages: int = 500) -> dict:
         check(agree <= 1e-5, f"direct {mode}: sparse and dense pobj differ "
               f"by {agree:.2e}")
         if mixed:
-            check(sp_run["k2"] > 0 and sp_run["k1"] > 0,
-                  f"sparse direct mixed: K2 {sp_run['k2']}, K1 "
+            check(sp_run["pair"] > 0 and sp_run["k1"] > 0,
+                  f"sparse direct mixed: K2s pair {sp_run['pair']}, K1 "
                   f"{sp_run['k1']} launches")
+        else:
+            check(sp_run["f64"] > 0 and sp_run["k1"] == 0,
+                  f"sparse direct pure f64: K2s float64 {sp_run['f64']}, "
+                  f"K1 {sp_run['k1']} launches")
         cut[mode] = sp_run
     del dense
     kcut = ds_matvec_case(cprob.A.shape[1], cprob.A.shape[1], seed=405)
@@ -3529,6 +3612,22 @@ def rowshard_kernel_rows(rs17: dict) -> list:
     return out
 
 
+def k2s_entry(sp14: dict, kind: str, replaces: str, launches: int) -> dict:
+    """The `kernels` entry of one kind of K2s: its times on the full
+    demo_sparse's A' (the row the redesign aimed at), the largest error
+    over every phase-14 row (and the band, for the pair)."""
+    row = sp14["rows"][1][kind]
+    errs = [r[kind]["max_abs_err"] for r in sp14["rows"]]
+    if kind == "pair":
+        errs.append(sp14["band"]["max_abs_err"])
+    return {"name": f"ell_matvec_{kind}", "route": "cuda",
+            "source": "scs_tpu_torch/csrc/ellmatvec.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(errs), "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+
 def share(c: dict) -> str:
     return (f"{100 * c['bound_ms'] / c['ms']:.0f}% of bound; without the "
             f"spin: kernel {c['ms_no_spin']:.4f} ms, library "
@@ -3934,11 +4033,12 @@ def main() -> int:
 
     done(13)
 
-    # 14. sparse problems (`demo_sparse`, blocked-ELL): K2 on the full
-    # instance's A and A' and on a band beyond the grid's 65535 block-rows,
-    # K2 and K1 on a tails operand, against their plain versions and scipy;
-    # the full instance (100000 x 64000, 25.57M nonzeros) through the
-    # indirect backend mixed (K2 counted) and pure float64; the cut
+    # 14. sparse problems (`demo_sparse`, blocked-ELL): K2s (pair, float32,
+    # float64) on the full instance's A and A' and on a tails operand (with
+    # K1 on its tails), the pair on a band beyond K2's 65535 block-rows,
+    # against their plain versions and scipy; the full instance (100000 x
+    # 64000, 25.57M nonzeros) through the indirect backend mixed and pure
+    # float64 (K2s counted); the cut
     # instance through the direct backend, sparse against dense, and
     # through the indirect backend twice, bit for bit
     sparse14 = sparse_phase(card)
@@ -4076,19 +4176,15 @@ def main() -> int:
         "bound_ms": spec13["sl_kernel"][0]["bound_ms"],
         "bound_by": spec13["sl_kernel"][0]["bound_by"],
         "library_ms": None,
-    }, {
-        "name": "ds_matvec_batched_sparse", "route": "cuda",
-        "source": "scs_tpu_torch/csrc/dsmatvec.cu",
-        "replaces": "scs_tpu/ops/dsmatvec.py:226",
-        "launches": sparse14["full"]["mixed"]["k2"],
-        "max_abs_err": max([r["max_abs_err"] for r in sparse14["rows"]]
-                           + [sparse14["band"]["max_abs_err"]]),
-        "ms": sparse14["rows"][0]["ms"],
-        "plain_ms": sparse14["rows"][0]["plain_ms"],
-        "bound_ms": sparse14["rows"][0]["bound_ms"],
-        "bound_by": sparse14["rows"][0]["bound_by"],
-        "library_ms": sparse14["rows"][0]["library_ms"],
-    }, *rowshard_kernel_rows(rs17), {
+    }, k2s_entry(sparse14, "pair", "scs_tpu/ops/dsmatvec.py:226",
+                 sparse14["full"]["mixed"]["pair"]),
+        k2s_entry(sparse14, "f32", "none: the JAX package's float32 "
+                  "product is an XLA einsum, scs_tpu/ops/sparse.py:122",
+                  sparse14["full"]["mixed"]["f32"]),
+        k2s_entry(sparse14, "f64", "none: the JAX package's float64 "
+                  "product is an XLA einsum, scs_tpu/ops/sparse.py:122",
+                  sparse14["full"]["pure f64"]["f64"]),
+        *rowshard_kernel_rows(rs17), {
         "name": "ds_matvec_sparse_direct", "route": "cuda",
         "source": "scs_tpu_torch/csrc/dsmatvec.cu",
         "replaces": "scs_tpu/ops/dsmatvec.py:91",

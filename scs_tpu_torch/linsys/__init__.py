@@ -106,15 +106,18 @@ def resolve_fast_f32(stg, mixed: bool, ds: bool) -> bool:
 def _shadows(backend, A, P, mixed: bool):
     """(A32, P32): the float32 shadows the mixed indirect CG runs on (the
     JAX package builds them for both backends; only indirect reads them).
-    A SparseA's shadow is the SparseA of its float32 tiles and tails, a
-    RowShardedA's the RowShardedA of its float32 rows."""
+    A SparseA's shadow is the SparseA of its float32 kernel tiles (each
+    direction re-tiled at its chosen width, `SparseA.retiled`) and tails,
+    a RowShardedA's the RowShardedA of its float32 rows."""
     if not (mixed and backend is indirect):
         return None, None
 
     def f32(M):
         if M is None:
             return None
-        if sparse.is_sparse(M) or rowshard.is_row_sharded(M):
+        if sparse.is_sparse(M):
+            return M.retiled(torch.float32)
+        if rowshard.is_row_sharded(M):
             return M.astype(torch.float32)
         return M.to(torch.float32)
 

@@ -17,7 +17,7 @@ kernel (`ops.dsmatvec`, K1) when the cache holds the operand splits.
 A sparse A (`ops.sparse.SparseA`, one problem) forms K from its tiles
 (`ops.sparse.sparse_gram`, a fixed-order sum; the n x n factor is dense
 whatever A's storage); a sparse P is densified once for G; the mixed
-path's A x and A' z run K2 on the tiles and K1 on the dense tails
+path's A x and A' z run K2s on the tiles and K1 on the dense tails
 (`ops.sparse.ds_sparse_matvec`), K x K1 on K's split.
 
 A row-sharded A (`ops.rowshard.RowShardedA`, a batch: the batched

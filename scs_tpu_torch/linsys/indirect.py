@@ -25,8 +25,9 @@ y-recovery's A x take the same kernels.
 
 A sparse A or P (`ops.sparse.SparseA`, one problem) takes the same
 path: the diagonal from its structure-aware column sums, its products
-through `matvec.mv`, its double-single applies through K2 (and K1 for its
-dense tails), `ops.sparse.ds_sparse_matvec`.
+through `matvec.mv` (the CG's on the float32 shadow, re-tiled:
+`SparseA.retiled`), its double-single applies through K2s (and K1 for
+its dense tails), `ops.sparse.ds_sparse_matvec`.
 
 A row-sharded A (`ops.rowshard.RowShardedA`, one problem or a batch)
 takes the same path too: the diagonal is summed over the model group

@@ -36,7 +36,7 @@ def mT(M):
 
 def ds_mv(split, x):
     """(hi + lo) x through K1 (one problem) or K2 (a batch); a sparse
-    operand's split (`ops.sparse.DsSparse`) through K2 and K1 for its
+    operand's split (`ops.sparse.DsSparse`) through K2s and K1 for its
     tails; a row-sharded split (`ops.rowshard.RowShardedSplit`) through
     K1, K2 or K3 on this rank's block and the group's collective."""
     if isinstance(split, rowshard.RowShardedSplit):

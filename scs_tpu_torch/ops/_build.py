@@ -31,7 +31,7 @@ BUILD_DIR = _PKG / "_build"
 # kernel name -> source file under csrc/
 SOURCES = {"dsmatvec": "dsmatvec.cu", "readpeak": "readpeak.cu",
            "dsmatmul": "dsmatmul.cu", "logdet": "logdet.cu",
-           "sumlargest": "sumlargest.cu"}
+           "sumlargest": "sumlargest.cu", "ellmatvec": "ellmatvec.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -4,29 +4,41 @@ Counterpart of `scs_tpu/ops/sparse.py`, with the same names. The matrix
 is tiled into (bm x bn) blocks and only the nonzero blocks are kept, as
 dense tiles (ELL by block-row):
 
-  data: (nbr, bm, kmax*bn)  the <= kmax nonzero tiles of each block-row,
-        side by side, padded with zero tiles
-  idx:  (nbr, kmax) int32   the column block of each tile slot (padding
-        slots point at block 0 and hold a zero tile: exact no-ops in
-        every sum)
+  data:  (nbr, bm, kmax*bn) the <= kmax nonzero tiles of each block-row,
+         side by side, padded with zero tiles
+  idx:   (nbr, kmax) int32  the column block of each tile slot (padding
+         slots point at block 0 and hold a zero tile)
+  count: (nbr,) int32       the slots of each block-row that hold a tile
+         (they come first; the port's addition, made once with the
+         operand)
 
-A product is a gather and a batched dense product:
+A product y = A x reads only the tiles below the count. On a CUDA tensor
+it is kernel K2s (`csrc/ellmatvec.cu`, launched by `ops/ellmatvec.py`): a
+warp a block-row reads x through the tile indices, so no gathered copy of
+x is made. Its kinds: the (hi, lo) float32 pair with float64 x (the mixed
+path's float64-accurate apply, `ds_ell_matvec`, which replaces the TPU's
+K2 on a gathered x), float32 (the indirect CG's shadow) and float64 (the
+pure path), the last two through `ell_matvec`. On a CPU tensor the plain
+versions run: the gather of x per block-row, the padded slots masked out,
+and a batched product (`ell_matvec_plain`, `ds_ell_matvec_plain`). Any
+other device raises.
 
-  xg = x.reshape(ncb, bn)[idx].reshape(nbr, kmax*bn)
-  y  = bmm(data, xg)      -> (nbr, bm) -> the first m entries
-
-so the mixed path's float64-accurate apply is the batched double-single
-kernel K2 (`ops/dsmatvec.ds_matvec_batched`, `csrc/dsmatvec.cu`), one
-batch element a block-row: `ds_ell_matvec`. The gather stays a torch op
-(`index_select`), as the JAX package leaves it to XLA. Unlike the TPU
-split, the port's split is not padded to the kernel's tiles: the kernel
-masks its own ragged edges. `SparseA` stores the transpose (A') too, and
+The kernels' operands are re-tiled: `choose_width` picks from the tiles'
+fill the widest column-block width (bn / 1, 2, 4 or 8) whose tiles store
+at most RETILE_SLACK times the elements of the narrowest, and
+`kernel_tiles` cuts each tile into subtiles of that width and keeps those
+that hold a nonzero, once, at setup, on the operand's device. The
+double-single split (`ds_split_ell`) and the float32 shadow
+(`SparseA.retiled`) are made from those tiles; the SparseA keeps the JAX
+package's tiles bit for bit (the Gram, the column sums, equilibration and
+the pure path read them). `SparseA` stores the transpose (A') too, and
 optional dense row and column tails, so that a few dense rows do not pad
 every block-row (the reference's CSC never pads: linsys/csparse.c).
 
 Sums run in a fixed order, so that the card repeats a solve bit for bit
 (no `index_add_` or `scatter_add`, whose atomics add in no fixed order):
-a column sum is a padded gather over the tiles sorted by column block
+a product row is summed by one warp in a fixed order; a column sum is a
+padded gather over the tiles sorted by column block
 (`cones/segments.segment_sum`); the Gram's block pairs are summed by one
 contraction over a padded gather of their tile pairs, chunk by chunk of
 block-rows in order; a scatter writes each target once (the tails' index
@@ -49,13 +61,22 @@ import torch
 import torch.nn.functional as F
 
 from ..cones.segments import segment_sum
-from . import dsmatvec
+from . import dsmatvec, ellmatvec
 from .dsmatvec import DsSplit
+
+# a kernel operand's width is the widest whose tiles store at most this
+# many times the elements of the narrowest width's (`choose_width`)
+RETILE_SLACK = 1.1
+# the narrowest width `choose_width` considers (the kernel's fast path
+# takes 16 to 128)
+MIN_WIDTH = 16
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockedEll:
-    """One direction of a blocked-ELL matrix (see the module docstring)."""
+    """One direction of a blocked-ELL matrix (see the module docstring).
+    `count` is made from the tiles where it is not given: one past the
+    last slot that holds a nonzero, for each block-row."""
 
     data: torch.Tensor       # (nbr, bm, kmax*bn)
     idx: torch.Tensor        # (nbr, kmax) int32, on data's device
@@ -64,6 +85,14 @@ class BlockedEll:
     bm: int
     bn: int
     kmax: int
+    count: Optional[torch.Tensor] = None    # (nbr,) int32, on data's device
+
+    def __post_init__(self):
+        if self.count is None:
+            nz = _slot_nonzero(self.data, self.bm, self.bn)
+            slot = torch.arange(1, self.kmax + 1, device=nz.device)
+            object.__setattr__(self, "count", torch.amax(
+                nz * slot, dim=1).to(torch.int32))
 
     @property
     def nbr(self) -> int:
@@ -78,10 +107,17 @@ class BlockedEll:
 
     def to(self, device) -> "BlockedEll":
         return dataclasses.replace(self, data=self.data.to(device),
-                                   idx=self.idx.to(device))
+                                   idx=self.idx.to(device),
+                                   count=self.count.to(device))
 
     def astype(self, dtype) -> "BlockedEll":
         return dataclasses.replace(self, data=self.data.to(dtype))
+
+
+def _slot_nonzero(data: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
+    """(nbr, slots) bool: whether each bn-wide tile slot holds a nonzero."""
+    nbr = data.shape[0]
+    return torch.any(data.reshape(nbr, bm, -1, bn) != 0, dim=3).any(dim=1)
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -122,7 +158,8 @@ def ell_from_coo(rows, cols, vals, m: int, n: int, bm: int = 8,
     return BlockedEll(
         data=torch.as_tensor(data, dtype=_torch_dtype(dtype), device=device),
         idx=torch.as_tensor(idx, device=device),
-        m=m, n=n, bm=bm, bn=bn, kmax=kmax)
+        m=m, n=n, bm=bm, bn=bn, kmax=kmax,
+        count=torch.as_tensor(counts.astype(np.int32), device=device))
 
 
 def _gather_x(ell: BlockedEll, x: torch.Tensor) -> torch.Tensor:
@@ -136,10 +173,36 @@ def _gather_x(ell: BlockedEll, x: torch.Tensor) -> torch.Tensor:
     return xg.reshape((ell.idx.shape[0], ell.kmax * ell.bn) + tail)
 
 
-def ell_matvec(ell: BlockedEll, x: torch.Tensor) -> torch.Tensor:
-    """y = A x in the data's dtype."""
+def _real_tiles(data: torch.Tensor, count: torch.Tensor, bm: int,
+                bn: int) -> torch.Tensor:
+    """The tiles with every slot past its block-row's count set to zero,
+    whatever it holds (the plain versions read no padding either)."""
+    d = data.reshape(data.shape[0], bm, -1, bn)
+    real = torch.arange(d.shape[2], device=d.device) < count[:, None]
+    return torch.where(real[:, None, :, None], d, 0.0).reshape(data.shape)
+
+
+def ell_matvec_plain(ell: BlockedEll, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2s (float32 or float64): the gathered x of each
+    block-row times its real tiles, in the data's dtype."""
     xg = _gather_x(ell, x.to(ell.data.dtype))
-    return torch.bmm(ell.data, xg.unsqueeze(-1)).reshape(-1)[: ell.m]
+    d = _real_tiles(ell.data, ell.count, ell.bm, ell.bn)
+    return torch.bmm(d, xg.unsqueeze(-1)).reshape(-1)[: ell.m]
+
+
+def ell_matvec(ell: BlockedEll, x: torch.Tensor) -> torch.Tensor:
+    """y = A x in the data's dtype (float32 or float64): kernel K2s on a
+    CUDA tensor, its plain version on a CPU tensor."""
+    x = x.to(ell.data.dtype)
+    if dsmatvec._batched_device("ell_matvec", x) == "cpu":
+        return ell_matvec_plain(ell, x)
+    kind = {torch.float32: "f32", torch.float64: "f64"}.get(ell.data.dtype)
+    if kind is None:
+        raise TypeError(f"ell_matvec's kernel takes float32 or float64 "
+                        f"tiles, not {ell.data.dtype}")
+    return ellmatvec.launch(kind, ell.data, None, ell.idx, ell.count,
+                            x.contiguous(), ell.m, ell.n, ell.bm, ell.bn,
+                            ell.kmax)
 
 
 def ell_matmat(ell: BlockedEll, X: torch.Tensor) -> torch.Tensor:
@@ -286,6 +349,68 @@ def ell_scale(ell: BlockedEll, D, E) -> BlockedEll:
     return dataclasses.replace(ell, data=data)
 
 
+def _widths(bn: int) -> list:
+    """The widths `choose_width` considers, widest first: bn / 1, 2, 4
+    and 8 that are multiples of MIN_WIDTH."""
+    return [bn // s for s in (1, 2, 4, 8)
+            if bn % s == 0 and (bn // s) % MIN_WIDTH == 0]
+
+
+def choose_width(ell: BlockedEll) -> int:
+    """The column-block width of ell's kernel operand: the widest of
+    `_widths(ell.bn)` whose subtiles that hold a nonzero store at most
+    RETILE_SLACK times the elements of the narrowest's (a narrower tile
+    reads fewer stored zeros, a wider one takes fewer steps a block-row).
+    ell.bn where no narrower width divides it. Reads one count a width to
+    the host (setup)."""
+    cands = _widths(ell.bn)
+    if len(cands) < 2:
+        return ell.bn
+    w0 = cands[-1]
+    nz = _live_subtiles(ell, w0)
+    stored = {w: w * int(nz.reshape(nz.shape[0], -1, w // w0).any(2).sum())
+              for w in cands}
+    least = min(stored.values())
+    return next(w for w in cands if stored[w] <= RETILE_SLACK * least)
+
+
+def _live_subtiles(ell: BlockedEll, w: int) -> torch.Tensor:
+    """(nbr, kmax * bn / w) bool: the w-wide subtiles below the count that
+    hold a nonzero."""
+    s = ell.bn // w
+    nz = _slot_nonzero(ell.data, ell.bm, w)
+    slot = torch.arange(nz.shape[1], device=nz.device) // s
+    return nz & (slot < ell.count[:, None])
+
+
+def ell_retile(ell: BlockedEll, w: int) -> BlockedEll:
+    """The same matrix in tiles of width w (a divisor of ell.bn): each tile
+    cut into ell.bn / w subtiles, those below the count that hold a
+    nonzero kept in their order (slot, then column), on ell's device; kmax
+    the most a block-row keeps. Reads kmax to the host (setup)."""
+    s = ell.bn // w
+    nbr, bm = ell.data.shape[0], ell.bm
+    live = _live_subtiles(ell, w)
+    count = live.sum(1, dtype=torch.int32)
+    kmax = max(int(count.max()), 1)
+    r, j = live.nonzero(as_tuple=True)
+    slot = (live.cumsum(1) - 1)[r, j]
+    idx = torch.zeros(nbr, kmax, dtype=torch.int32, device=live.device)
+    idx[r, slot] = (ell.idx[r, j // s] * s + j % s).to(torch.int32)
+    d = ell.data.reshape(nbr, bm, -1, w)
+    data = d.new_zeros(nbr, bm, kmax, w)
+    data[r, :, slot, :] = d[r, :, j, :]
+    return BlockedEll(data=data.reshape(nbr, bm, kmax * w), idx=idx,
+                      m=ell.m, n=ell.n, bm=bm, bn=w, kmax=kmax, count=count)
+
+
+def kernel_tiles(ell: BlockedEll) -> BlockedEll:
+    """ell's kernel operand: ell re-tiled at `choose_width(ell)`, or ell
+    itself where that is its own width."""
+    w = choose_width(ell)
+    return ell if w == ell.bn else ell_retile(ell, w)
+
+
 # ---------------------------------------------------------------------------
 # the two-sided operator
 
@@ -352,7 +477,8 @@ class SparseA:
         key names them all)."""
         return tuple(t for t in (
             self.fwd.data, self.fwd.idx, self.bwd.data, self.bwd.idx,
-            self.rows_val, self.cols_val, self.rows_index, self.cols_index)
+            self.rows_val, self.cols_val, self.rows_index, self.cols_index,
+            self.fwd.count, self.bwd.count)
             if t is not None)
 
     def _add_tails(self, y, x):
@@ -460,6 +586,17 @@ class SparseA:
             cols_val=None if self.cols_val is None
             else self.cols_val.to(dtype))
 
+    def retiled(self, dtype) -> "SparseA":
+        """A in `dtype` with each direction's tiles its kernel operand
+        (`kernel_tiles`): the float32 shadow that the indirect CG
+        multiplies by. Only its products read it."""
+        def cast(t):
+            return None if t is None else t.to(dtype)
+        return dataclasses.replace(
+            self, fwd=kernel_tiles(self.fwd).astype(dtype),
+            bwd=kernel_tiles(self.bwd).astype(dtype),
+            rows_val=cast(self.rows_val), cols_val=cast(self.cols_val))
+
     def to(self, device) -> "SparseA":
         def mv(t):
             return None if t is None else t.to(device)
@@ -523,12 +660,13 @@ def sparse_gram(A: SparseA, row_weight=None) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class DsBlocked:
-    """The (hi, lo) float32 pair of a BlockedEll's tiles for kernel K2,
-    one batch element a block-row; unpadded."""
+    """The (hi, lo) float32 pair of a BlockedEll's kernel operand
+    (`kernel_tiles`) for kernel K2s; the same layout and count."""
 
     hi: torch.Tensor             # (nbr, bm, kmax*bn) float32
     lo: torch.Tensor
     idx: torch.Tensor            # (nbr, kmax) int32
+    count: torch.Tensor          # (nbr,) int32
     m: int
     n: int
     bm: int
@@ -542,31 +680,46 @@ class DsBlocked:
     def to(self, device) -> "DsBlocked":
         return dataclasses.replace(self, hi=self.hi.to(device),
                                    lo=self.lo.to(device),
-                                   idx=self.idx.to(device))
+                                   idx=self.idx.to(device),
+                                   count=self.count.to(device))
 
 
 def ds_split_ell(ell: BlockedEll) -> DsBlocked:
-    hi, lo = dsmatvec.split_operand(ell.data)
-    return DsBlocked(hi=hi, lo=lo, idx=ell.idx, m=ell.m, n=ell.n, bm=ell.bm,
-                     bn=ell.bn, kmax=ell.kmax)
+    """The pair of ell's kernel operand, re-tiled at its chosen width."""
+    t = kernel_tiles(ell)
+    hi, lo = dsmatvec.split_operand(t.data)
+    return DsBlocked(hi=hi, lo=lo, idx=t.idx, count=t.count, m=t.m, n=t.n,
+                     bm=t.bm, bn=t.bn, kmax=t.kmax)
+
+
+def ds_ell_matvec_plain(ds: DsBlocked, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2s on the pair: each real element formed exactly
+    in float64 as hi + lo, times the gathered x, y float64."""
+    A = _real_tiles(ds.hi.to(torch.float64) + ds.lo.to(torch.float64),
+                    ds.count, ds.bm, ds.bn)
+    xg = _gather_x(ds, x.to(torch.float64))
+    return torch.bmm(A, xg.unsqueeze(-1)).reshape(-1)[: ds.m]
 
 
 def ds_ell_matvec(ds: DsBlocked, x: torch.Tensor,
                   plain: bool = False) -> torch.Tensor:
-    """y = A x to ~1e-13 relative: the gather, then K2 (one batch element
-    a block-row) on a CUDA tensor, its plain version on a CPU tensor; any
-    other device raises. y in x's type. `plain` runs the plain version
-    whatever the device (the card's comparisons)."""
-    batched = (dsmatvec.ds_matvec_batched_plain if plain
-               else dsmatvec.ds_matvec_batched)
-    y = batched(DsSplit(ds.hi, ds.lo), _gather_x(ds, x))
-    return y.reshape(-1)[: ds.m]
+    """y = A x to ~1e-13 relative, float64 x and y: K2s on a CUDA tensor,
+    its plain version on a CPU tensor; any other device raises. `plain`
+    runs the plain version whatever the device (the card's
+    comparisons)."""
+    if x.dtype != torch.float64:
+        raise TypeError(f"ds_ell_matvec takes float64 x, got {x.dtype}")
+    if plain or dsmatvec._batched_device("ds_ell_matvec", x) == "cpu":
+        return ds_ell_matvec_plain(ds, x)
+    return ellmatvec.launch("pair", ds.hi, ds.lo, ds.idx, ds.count,
+                            x.contiguous(), ds.m, ds.n, ds.bm, ds.bn,
+                            ds.kmax)
 
 
 @dataclasses.dataclass(frozen=True)
 class DsSparse:
     """The double-single operand of ONE direction of a SparseA: the
-    blocked-ELL pair for K2, and the dense tails' pairs for K1, added at
+    blocked-ELL pair for K2s, and the dense tails' pairs for K1, added at
     the tails' indices (int64 tensors on the operand's device)."""
 
     ell: DsBlocked
@@ -598,7 +751,7 @@ def ds_split_sparse(A: SparseA) -> DsSparse:
 
 def ds_sparse_matvec(ds: DsSparse, x: torch.Tensor,
                      plain: bool = False) -> torch.Tensor:
-    """y = A x (~1e-13 relative): K2 on the blocked-ELL part, K1 on each
+    """y = A x (~1e-13 relative): K2s on the blocked-ELL part, K1 on each
     dense tail (their plain versions on a CPU tensor). `plain` runs the
     plain versions whatever the device (the card's comparisons)."""
     single = dsmatvec.ds_matvec_plain if plain else dsmatvec.ds_matvec

@@ -211,7 +211,7 @@ def root_plus(g, p, mu, eta, diag_r, nm: int):
 
 def _res_matvec(data: ProblemData, x, transpose: bool):
     """A x / A' x through the double-single kernels when the cache holds
-    the splits (K1; K2 and K1 for a sparse A), else in plain float64."""
+    the splits (K1; K2s and K1 for a sparse A), else in plain float64."""
     ds = getattr(data.lin_cache, "ds_bwd" if transpose else "ds_fwd", None)
     if ds is None:
         return (data.A.T @ x) if transpose else (data.A @ x)

@@ -7,6 +7,7 @@ where only PyTorch is installed:
 
 (`--noconftest`: the suite's conftest.py configures JAX)."""
 
+import dataclasses
 import functools
 import math
 import types
@@ -877,21 +878,23 @@ def _sparse_tails(m=400, n=300, seed=9):
 
 
 def test_ds_sparse_matvec_on_the_card_matches_the_plain_version(cuda):
-    """K2 on the tiles and K1 on the two tails of each direction against
-    the plain versions, within 1e-13 (1 + max |A||x|), and one K2 and two
-    K1 launches an apply."""
-    from scs_tpu_torch.ops import sparse
+    """K2s on the tiles and K1 on the two tails of each direction against
+    the plain versions, within 1e-13 (1 + max |A||x|), and one K2s and two
+    K1 launches an apply (K2 no longer runs on a sparse operand)."""
+    from scs_tpu_torch.ops import ellmatvec, sparse
     A, S = _sparse_tails()
     S = S.to(cuda)
     rng = np.random.RandomState(1)
     for T, M in ((S, A), (S.T, A.T)):
         ds = sparse.ds_split_sparse(T)
         x = torch.tensor(rng.randn(M.shape[1]), device=cuda)
-        before = (dsmatvec.launches, dsmatvec.batched_launches)
+        before = (dsmatvec.launches, dsmatvec.batched_launches,
+                  ellmatvec.pair_launches)
         y = sparse.ds_sparse_matvec(ds, x)
         torch.cuda.synchronize()
         assert (dsmatvec.launches - before[0],
-                dsmatvec.batched_launches - before[1]) == (2, 1)
+                dsmatvec.batched_launches - before[1],
+                ellmatvec.pair_launches - before[2]) == (2, 0, 1)
         ref = sparse.ds_sparse_matvec(ds, x, plain=True)
         xh = x.cpu().numpy()
         tol = 1e-13 * (1 + float((abs(M) @ np.abs(xh)).max()))
@@ -900,19 +903,21 @@ def test_ds_sparse_matvec_on_the_card_matches_the_plain_version(cuda):
 
 
 def test_sparse_indirect_mixed_solve_on_the_card_matches_the_cpu(cuda):
-    """demo_sparse at its widths and 3 stages (600 x 384; A' pads its
-    gather from 600 to 640) through the indirect backend, mixed: on the
-    card (K2 on the tiles, CG graphs on the float32 shadow) and on the CPU
+    """demo_sparse at its widths and 3 stages (600 x 384; A' re-tiled at
+    bn = 32) through the indirect backend, mixed: on the card (K2s on the
+    pair, CG graphs on the float32 shadow through K2s) and on the CPU
     through the plain versions; the same status, objectives within 1e-4
     (1 + |pobj|), iteration counts within [0.8, 1.25] (CG stops on
     data-dependent tests, summed in other orders)."""
     from scs_tpu_torch import demo_sparse
+    from scs_tpu_torch.ops import ellmatvec
     prob, spec, opt, _ = demo_sparse.build_problem(K=3, seed=3)
     stg = Settings(linsys="indirect", eps_abs=1e-5, eps_rel=1e-5)
-    dsmatvec.batched_launches = 0
+    ellmatvec.pair_launches = ellmatvec.f32_launches = 0
     ws = Workspace(prob, spec, None, stg)
     _, info = ws.solve()
-    launches = dsmatvec.batched_launches
+    launches = ellmatvec.pair_launches
+    assert ellmatvec.f32_launches > 0
     cpu = Workspace(prob, spec, None, Settings(
         linsys="indirect", mixed_precision=True, eps_abs=1e-5,
         eps_rel=1e-5), device="cpu", ds_split=True)
@@ -922,6 +927,135 @@ def test_sparse_indirect_mixed_solve_on_the_card_matches_the_cpu(cuda):
     assert abs(info.pobj - ref.pobj) <= 1e-4 * (1 + abs(ref.pobj))
     assert abs(info.pobj - opt) <= 1e-3 * (1 + abs(opt))
     assert 0.8 <= info.iter / ref.iter <= 1.25
+
+
+def _ell_case(name: str):
+    """(BlockedEll on the CPU in float64, scipy CSR) of one K2s layout
+    case: the kernel's fast path at each width, the generic path (bm = 4;
+    bn = 24), a few block-rows of many tiles (8 warps a block-row), more
+    than 32 tiles a block-row on one warp, n not a multiple of 4."""
+    import scipy.sparse as sp
+    from scs_tpu_torch.ops import sparse
+    rng = np.random.RandomState(7)
+    if name == "many tiles":        # 16 x 1000 dense: 63 tiles of 16
+        M = sp.csr_matrix(rng.randn(16, 1000))
+        return sparse.ell_retile(sparse.sparse_from_scipy(
+            M, dense_rows=(), dense_cols=()).fwd, 16), M
+    if name == "long rows":         # 4400 block-rows of 40 tiles of 16
+        nbr, kmax = 4400, 40
+        ell = sparse.BlockedEll(
+            torch.tensor(rng.randn(nbr, 8, kmax * 16)), torch.arange(
+                kmax, dtype=torch.int32).repeat(nbr, 1), nbr * 8,
+            kmax * 16, 8, 16, kmax)
+        return ell, sp.csr_matrix(sparse.ell_to_dense(ell).numpy())
+    m, n = (203, 61) if name == "n % 4" else (700, 500)
+    M = sp.random(m, n, density=0.03, random_state=rng,
+                  data_rvs=rng.randn, format="csr")
+    if name == "generic":
+        return sparse.sparse_from_scipy(M, bm=4, bn=24, dense_rows=(),
+                                        dense_cols=()).fwd, M
+    ell = sparse.sparse_from_scipy(M, dense_rows=(), dense_cols=()).fwd
+    w = {"bn 16": 16, "bn 32": 32, "bn 64": 64}.get(name)
+    return (ell if w is None else sparse.ell_retile(ell, w)), M
+
+
+ELL_CASES = ["bn 16", "bn 32", "bn 64", "bn 128", "generic", "many tiles",
+             "long rows", "n % 4"]
+
+
+@pytest.mark.parametrize("name", ELL_CASES)
+@pytest.mark.parametrize("kind", ["pair", "f32", "f64"])
+def test_ell_matvec_kernel_matches_plain(cuda, kind, name):
+    """K2s of each kind against its plain version on the card and scipy's
+    float64 product, 1e-13 (1 + max |A||x|) for the pair and float64,
+    1e-5 for float32; x aligned and an offset view (scalar loads); one
+    launch a call; the same bits twice."""
+    from scs_tpu_torch.ops import ellmatvec, sparse
+    ell, M = _ell_case(name)
+    ell = ell.to(cuda)
+    rng = np.random.RandomState(2)
+    xs = torch.tensor(rng.randn(M.shape[1] + 1), device=cuda,
+                      dtype=torch.float32 if kind == "f32" else torch.float64)
+    for x in (xs[:-1], xs[1:]):
+        xh = x.cpu().numpy()
+        absax = float((abs(M) @ np.abs(xh)).max())
+        tol = (1e-5 if kind == "f32" else 1e-13) * (1 + absax)
+        before = (ellmatvec.pair_launches, ellmatvec.f32_launches,
+                  ellmatvec.f64_launches)
+        if kind == "pair":
+            ds = sparse.ds_split_ell(ell)
+            y = sparse.ds_ell_matvec(ds, x)
+            y2 = sparse.ds_ell_matvec(ds, x)
+            ref = sparse.ds_ell_matvec(ds, x, plain=True)
+        else:
+            e = ell.astype(torch.float32) if kind == "f32" else ell
+            y = sparse.ell_matvec(e, x)
+            y2 = sparse.ell_matvec(e, x)
+            ref = sparse.ell_matvec_plain(e, x)
+        torch.cuda.synchronize()
+        after = (ellmatvec.pair_launches, ellmatvec.f32_launches,
+                 ellmatvec.f64_launches)
+        k = ["pair", "f32", "f64"].index(kind)
+        assert [a - b for a, b in zip(after, before)] == [
+            2 * (i == k) for i in range(3)]
+        assert torch.equal(y, y2)
+        assert float((y.double() - ref.double()).abs().max()) <= tol
+        assert float(np.abs(y.double().cpu().numpy() - M @ xh).max()) <= tol
+
+
+def test_ell_matvec_kernel_reads_no_padded_slot(cuda):
+    """NaN written into every padded slot of the tiles leaves the kernel's
+    y unchanged, bit for bit, for each kind."""
+    import scipy.sparse as sp
+    from scs_tpu_torch.ops import sparse
+    rng = np.random.RandomState(4)
+    M = sp.random(300, 900, density=0.02, random_state=rng,
+                  data_rvs=rng.randn, format="csr")
+    ell = sparse.sparse_from_scipy(M, dense_rows=(), dense_cols=()).fwd
+    assert int(ell.count.min()) < ell.kmax
+    d = ell.data.clone().reshape(ell.idx.shape[0], ell.bm, ell.kmax, ell.bn)
+    pad = torch.arange(ell.kmax) >= ell.count[:, None]
+    d[pad.nonzero(as_tuple=True)[0], :, pad.nonzero(as_tuple=True)[1], :] = \
+        float("nan")
+    bad = dataclasses.replace(ell, data=d.reshape(ell.data.shape)).to(cuda)
+    ell = ell.to(cuda)
+    x = torch.tensor(rng.randn(900), device=cuda)
+    for e, b in ((ell, bad), (ell.astype(torch.float32),
+                              bad.astype(torch.float32))):
+        assert torch.equal(sparse.ell_matvec(e, x), sparse.ell_matvec(b, x))
+    ds = sparse.DsBlocked(*dsmatvec.split_operand(bad.data), bad.idx,
+                          bad.count, bad.m, bad.n, bad.bm, bad.bn, bad.kmax)
+    good = sparse.DsBlocked(*dsmatvec.split_operand(ell.data), ell.idx,
+                            ell.count, ell.m, ell.n, ell.bm, ell.bn,
+                            ell.kmax)
+    assert torch.equal(sparse.ds_ell_matvec(ds, x),
+                       sparse.ds_ell_matvec(good, x))
+
+
+def test_ell_matvec_under_graph_capture_matches_eager(cuda):
+    """K2s captured in a CUDA graph (as the CG blocks run the float32
+    shadow) and replayed gives the eager launch's bits; the capture counts
+    in `captured`, not in the launches."""
+    from scs_tpu_torch.ops import ellmatvec, sparse
+    ell, _ = _ell_case("bn 32")
+    e32 = ell.astype(torch.float32).to(cuda)
+    x = torch.tensor(np.random.RandomState(3).randn(ell.n),
+                     dtype=torch.float32, device=cuda)
+    eager = sparse.ell_matvec(e32, x)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    launches, captured = ellmatvec.f32_launches, ellmatvec.captured
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            out = sparse.ell_matvec(e32, x)
+    torch.cuda.current_stream().wait_stream(stream)
+    assert ellmatvec.f32_launches == launches
+    assert ellmatvec.captured == captured + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 @pytest.mark.parametrize("name", ["box", "exp", "power"])

@@ -168,7 +168,7 @@ def test_todense_round_trips():
     assert moved.rows_index is St.rows_index
     np.testing.assert_array_equal(moved.todense().numpy(),
                                   Ad.astype(np.float32))
-    assert len(moved.tensors()) == 8
+    assert len(moved.tensors()) == 10      # and each direction's count
 
 
 @pytest.mark.parametrize("upper_only", [False, True])
@@ -298,13 +298,13 @@ def test_ds_sparse_matvec_matches_the_jax_interpret_kernel():
         assert rel(y, ref) <= 1e-13
     assert (dsmatvec.launches, dsmatvec.batched_launches) == before
     ds = tsp.ds_split_sparse(t)
-    assert ds.ell.hi.shape == t.fwd.data.shape        # unpadded
+    # the pair of the re-tiled kernel operand: no larger than the tiles
+    assert ds.ell.hi.numel() <= t.fwd.data.numel()
     assert ds.ell.hi.dtype == torch.float32
 
 
 def test_k2_launches_in_chunks_of_the_grid_limit():
-    """A batch above gridDim.z's 65535 launches in chunks (the sparse
-    apply gives one batch element a block-row)."""
+    """A batch above gridDim.z's 65535 launches in chunks."""
     M = dsmatvec.MAX_BATCH
     assert M == 65535
     assert dsmatvec.batch_chunks(0) == []
@@ -464,13 +464,14 @@ def test_nonfinite_sparse_operands_are_refused():
 
 def test_graph_key_names_every_tensor_of_a_sparse_operand():
     """The CG graph cache's key lists every tensor a sparse apply reads
-    (tiles and indices of both directions, tails and their indices)."""
+    (tiles, indices and tile counts of both directions, tails and their
+    indices)."""
     _, _, t = _both("tails")
     got = indirect._tensors(t, None, t64(np.ones(3)))
-    assert len(got) == 10 and got[-2] is None
-    for a, b in zip(got[:8], (t.fwd.data, t.fwd.idx, t.bwd.data, t.bwd.idx,
-                              t.rows_val, t.cols_val, t.rows_index,
-                              t.cols_index)):
+    assert len(got) == 12 and got[-2] is None
+    for a, b in zip(got[:10], (t.fwd.data, t.fwd.idx, t.bwd.data, t.bwd.idx,
+                               t.rows_val, t.cols_val, t.rows_index,
+                               t.cols_index, t.fwd.count, t.bwd.count)):
         assert a is b
 
 
